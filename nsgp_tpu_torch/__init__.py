@@ -8,15 +8,22 @@ same path:
                   moment matching, the sequential Kalman engine, and the
                   hand-written CUDA kernels of the fused filter/smoother
                   (``ops.fused_kalman``, sources under ``csrc/``).
-- ``models``    : the GT-NMF model and its parameters (an ``nn.Module``).
-- ``inference`` : Power-EP (``ep_infer``), sequential and fused backends.
-- ``utils``     : full-fp32 matmul guard.
+- ``models``    : the GT-NMF model and its parameters (an ``nn.Module``),
+                  stacked per-file parameters, joint mixture models.
+- ``inference`` : Power-EP (``ep_infer``), sequential and fused backends;
+                  batched EP over files (``ep_infer_batch``); the engine
+                  registry.
+- ``apps``      : missing-data synthesis (``fill_gaps``, ``fill_gaps_batch``)
+                  and source separation (``separate``).
+- ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR.
 - ``convert``   : parameters from numpy / trained ``.npz`` artifacts.
 
 It imports torch and numpy only, never jax.  Kernels are compiled with
-``nvcc`` at first use on a CUDA tensor, never at import.
+``nvcc`` at first use on a CUDA tensor, never at import.  Entry points place
+their work on the card unless the caller passes ``device="cpu"``
+(``utils.device``).
 """
 
 __version__ = "0.1.0"
 
-from nsgp_tpu_torch import inference, models, ops, utils  # noqa: F401
+from nsgp_tpu_torch import apps, inference, models, ops, utils  # noqa: F401

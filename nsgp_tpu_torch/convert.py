@@ -1,10 +1,15 @@
 """Carry model parameters across from the JAX package's artifacts.
 
 ``params_from_numpy`` takes the seven ``GTNMFParams`` leaves as numpy arrays
-(e.g. ``{k: np.asarray(v) for k, v in jax_params._asdict().items()}``);
-``load_trained`` reads a trained ``.npz`` written by
+(e.g. ``{k: np.asarray(v) for k, v in jax_params._asdict().items()}``), with
+or without a leading file axis (a stacked JAX ``GTNMFParams`` gives the port's
+stacked parameters); ``load_trained`` reads a trained ``.npz`` written by
 ``nsgp_tpu.pretrain.pipeline.save_trained`` (the same keys
-``pipeline.load_trained`` reads).  Neither imports jax.
+``pipeline.load_trained`` reads), ``load_trained_batch`` a list of them as
+one model and stacked parameters.  None imports jax.
+
+Tensors are placed by ``utils.device.resolve_device``: on the card by default,
+on the CPU only when asked (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -12,13 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams
+from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams, stack_params
+from nsgp_tpu_torch.utils.device import resolve_device
 
 
 def params_from_numpy(arrays, device=None, dtype=None) -> GTNMFParams:
     """``GTNMFParams`` from a mapping of the seven leaves to arrays.
 
-    ``dtype`` defaults to the arrays' own floating type."""
+    ``dtype`` defaults to the arrays' own floating type; leaves may carry a
+    leading (BF,) file axis."""
+    device = resolve_device(device)
     return GTNMFParams(**{
         k: torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
         for k in PARAM_NAMES
@@ -27,6 +35,7 @@ def params_from_numpy(arrays, device=None, dtype=None) -> GTNMFParams:
 
 def load_trained(path, device=None, dtype=None):
     """Load a trained artifact as ``(GTNMFModel, GTNMFParams)``."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         model = GTNMFModel(
             D=int(z["D"]), N=int(z["N"]),
@@ -35,3 +44,15 @@ def load_trained(path, device=None, dtype=None):
         )
         params = params_from_numpy({k: z[k] for k in PARAM_NAMES}, device, dtype)
     return model, params
+
+
+def load_trained_batch(paths, device=None, dtype=None):
+    """Load trained artifacts of one model structure as ``(GTNMFModel,
+    paramsB)`` with the parameters stacked on a leading file axis."""
+    loaded = [load_trained(p, device, dtype) for p in paths]
+    model = loaded[0][0]
+    for path, (m, _) in zip(paths, loaded):
+        if m != model:
+            raise ValueError(f"{path}: model {m} differs from {model}; a batch shares "
+                             f"(D, N, kernels, variant, cubature)")
+    return model, stack_params([p for _, p in loaded])

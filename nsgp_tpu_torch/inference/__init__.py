@@ -1,3 +1,3 @@
-"""Inference engines: Power-EP."""
+"""Inference engines: Power-EP, single-file and batched, and the registry."""
 
-from nsgp_tpu_torch.inference import ep  # noqa: F401
+from nsgp_tpu_torch.inference import batched, ep, registry  # noqa: F401

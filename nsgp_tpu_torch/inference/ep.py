@@ -20,7 +20,10 @@ Two backends:
 - ``"fused"`` (JAX ``"pallas"``): the fused passes of ``ops.fused_kalman``
   and the all-T re-site.  On CUDA tensors every pass is one hand-written
   kernel launch; on CPU tensors the same passes run as their plain torch
-  versions.  Which one runs follows the device of the inputs.
+  versions.
+
+Placement follows ``utils.device``: ``ep_infer`` moves its inputs to the card
+unless the caller passes ``device="cpu"``; without a card the default raises.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import fused_kalman, kalman
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
+from nsgp_tpu_torch.utils.device import resolve_device
 from nsgp_tpu_torch.utils.precision import full_fp32
 
 BACKENDS = ("seq", "fused")
@@ -46,6 +50,8 @@ class EPConfig(NamedTuple):
     damping: tuple = ()  # per-iteration damping; empty = 0.5 everywhere
     moment_chunk: int = 4096  # sites per batched re-site call
     backend: str = "seq"  # 'seq' | 'fused'
+    s_chunk: int = 0  # sigma points per rescale chunk of the batched ADF
+    # kernel (0 = all in one chunk); the single-signal kernel ignores it
     # Not ported yet (they raise NotImplementedError when set):
     parallel: bool = False  # parallel-in-time passes
     chunk: int = 512  # blocked-scan chunk of the parallel path
@@ -153,21 +159,21 @@ def ep_infer(
     y: torch.Tensor,  # (T,) observations; NaNs allowed (-> missing)
     mask: Optional[torch.Tensor] = None,  # (T,) bool; default = ~isnan(y)
     config: EPConfig = EPConfig(),
+    device=None,  # None = the card; "cpu" runs the plain versions
 ) -> EPResult:
     """Full Power-EP posterior inference (prediction mode of the reference).
 
-    ``params`` and ``y`` must be on one device; the computation runs there
-    in the parameters' dtype.  Missing steps (mask False / NaN y) get pure
-    GP interpolation like the reference's NaN handling.
+    ``params``, ``y`` and ``mask`` are moved to ``device`` (the card by
+    default; without one that raises) and the computation runs there in the
+    parameters' dtype.  Missing steps (mask False / NaN y) get pure GP
+    interpolation like the reference's NaN handling.
     """
     _check_config(config)
     full_fp32()
-    dev = params.lik.device
-    if y.device != dev or (mask is not None and mask.device != dev):
-        raise ValueError(f"y/mask on {y.device}, parameters on {dev}: move them to one device")
-    if mask is None:
-        mask = ~torch.isnan(y)
-    mask = mask.to(torch.bool)
+    dev = resolve_device(device)
+    params = params.on(dev)
+    y = y.to(dev)
+    mask = ~torch.isnan(y) if mask is None else mask.to(dev, torch.bool)
     ssm = model.build_ssm(params)
     dtype = ssm.A.dtype
     y = torch.nan_to_num(y).to(dtype)

@@ -29,7 +29,9 @@ PARAM_NAMES = ("lik", "sub_var", "sub_len", "omega", "mod_var", "mod_len", "W")
 class GTNMFParams(nn.Module):
     """Natural-scale (positive) model hyperparameters, held as buffers.
 
-    ``.to(device)`` / ``.double()`` move and cast all seven together.
+    ``.to(device)`` / ``.double()`` move and cast all seven together.  A
+    batch of files is the same module with a leading (BF,) axis on every
+    buffer (``stack_params``); ``select(b)`` gives one file back.
     """
 
     lik: torch.Tensor  # () observation noise variance sn2
@@ -48,11 +50,22 @@ class GTNMFParams(nn.Module):
 
     @property
     def D(self) -> int:
-        return self.sub_var.shape[0]
+        return self.sub_var.shape[-1]
 
     @property
     def N(self) -> int:
-        return self.mod_var.shape[0]
+        return self.mod_var.shape[-1]
+
+    def leaves(self) -> tuple:
+        return tuple(getattr(self, name) for name in PARAM_NAMES)
+
+    def on(self, device) -> "GTNMFParams":
+        """A copy on ``device`` (``.to`` would move this module in place)."""
+        return GTNMFParams(*(x.to(device) for x in self.leaves()))
+
+    def select(self, b: int) -> "GTNMFParams":
+        """File ``b`` of stacked parameters."""
+        return GTNMFParams(*(x[b] for x in self.leaves()))
 
     def to_flat_log(self) -> torch.Tensor:
         """Pack to the reference's flat log-parameter vector ``w``."""
@@ -83,6 +96,11 @@ class GTNMFParams(nn.Module):
             mod_len=ew[o + 3 * D + N : o + 3 * D + 2 * N],
             W=ew[o + 3 * D + 2 * N :].reshape(N, D).T.contiguous(),  # undo column-major
         )
+
+
+def stack_params(params_list) -> GTNMFParams:
+    """Stack per-file parameters along a new leading (BF,) file axis."""
+    return GTNMFParams(*(torch.stack(xs) for xs in zip(*(p.leaves() for p in params_list))))
 
 
 class GTNMFModel(NamedTuple):
@@ -122,6 +140,11 @@ class GTNMFModel(NamedTuple):
             kernel2=self.kernel2,
             dt=dt,
         )
+
+    def build_ssm_batch(self, paramsB: GTNMFParams, dt: float = 1.0) -> ssm_mod.BlockSSM:
+        """Stacked parameters -> one ``BlockSSM`` with leaves (BF, C, ...)."""
+        BF = paramsB.sub_var.shape[0]
+        return ssm_mod.stack_ssms([self.build_ssm(paramsB.select(b), dt) for b in range(BF)])
 
 
 def per_subband_params(lik, sub_var, sub_len, omega, mod_var, mod_len) -> GTNMFParams:

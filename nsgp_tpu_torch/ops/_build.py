@@ -2,7 +2,9 @@
 
 The library is compiled by ``nvcc`` at first use, from the sources in this
 checkout only, into ``build/nsgp_kernels/`` at the repository root (listed in
-``.gitignore``).  Its file name carries a hash of the sources and flags, so
+``.gitignore``).  Each ``.cu`` is compiled to an object by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library.  Its file name carries a hash of the sources, headers and flags, so
 an edited source triggers a rebuild.  It has a plain C interface and is
 loaded with ``ctypes``; no PyTorch headers are compiled, which keeps the
 build to seconds.
@@ -20,11 +22,15 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "fused_kalman.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = (_CSRC / "fused_kalman.cu", _CSRC / "fused_adf_mb.cu")
+HEADERS = (_CSRC / "nsgp_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "nsgp_kernels"
 # No --use_fast_math: see the note at the top of csrc/fused_kalman.cu.
+# -Xptxas -v: every kernel's registers, shared memory and spills go to the
+# build log beside the library (``ptxas_log_path``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
@@ -32,7 +38,10 @@ _SIGNATURES = {
     "nsgp_fused_fwd": ([_i, _i] + [_p] * 8 + [_i, _i, _p], _i),
     "nsgp_fused_bwd": ([_i, _i] + [_p] * 7 + [_i, _i, _p], _i),
     "nsgp_fused_adf": ([_i, _i] + [_p] * 10 + [_d, _d] + [_i] * 6 + [_p] * 6, _i),
+    "nsgp_adf_threads": ([], _i),
+    "nsgp_fused_adf_mb": ([_i, _i] + [_p] * 10 + [_d, _d] + [_i] * 8 + [_p] * 6, _i),
 }
+
 
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
@@ -45,9 +54,37 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds) -> list:
+    """Run the commands side by side; raise with the output of the first
+    that fails, else return every command's compiler output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    return logs
+
+
+def _compile(tmp: Path, out: Path) -> None:
+    """One nvcc per source (in parallel), then the link."""
+    nvcc = _nvcc()
+    objs = [tmp / (src.stem + ".o") for src in SOURCES]
+    logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(SOURCES, objs)])
+    lib = tmp / "lib.so"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+    ptxas_log_path(out).write_text("\n".join(logs))
+    os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
+
+
+def ptxas_log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.log")
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libnsgp_kernels_{h.hexdigest()[:16]}.so"
@@ -59,15 +96,8 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            _compile(Path(tmp), out)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

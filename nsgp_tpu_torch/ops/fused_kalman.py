@@ -1,11 +1,14 @@
 """Fused filter / smoother / ADF passes: CUDA kernels and their plain twins.
 
-Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Three kernels, each a whole
-sequential pass over T in one launch (``csrc/fused_kalman.cu``):
+Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Four kernels, each a whole
+sequential pass over T in one launch (``csrc/fused_kalman.cu``,
+``csrc/fused_adf_mb.cu``):
 
-    fused_fwd  (K1)  forward filter with fixed sites    <- _fwd_kernel
-    fused_bwd  (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
-    fused_adf  (K3)  EP sweep 1: filter + in-step ADF   <- _adf_kernel
+    fused_fwd     (K1)  forward filter with fixed sites    <- _fwd_kernel
+    fused_bwd     (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
+    fused_adf     (K3)  EP sweep 1: filter + in-step ADF   <- _adf_kernel
+    fused_adf_mb  (K4)  K3 over BF files, one CTA a file,  <- _adf_kernel_mb
+                        sigma points streamed in chunks
 
 Each wrapper does exactly one of two things: on CPU tensors it runs its
 plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
@@ -16,9 +19,11 @@ kernel launches in ``<wrapper>.launches``.
 
 Trajectories are C-major, (T, C, bs) / (T, C, bs, bs), exactly T steps: the
 TPU kernels' b-major (Tp*bs, C) rows and the padding of T to a block exist
-only for TPU tiles.  The kernels assume the stationary discretization
-Q = Pinf - A Pinf A' (the ``build_modulator_ssm`` default), under which one
-prediction from (0, Pinf) is exactly (0, Pinf).
+only for TPU tiles.  K4's carry a file axis, (T, BF, C, ...), which viewed as
+(T, BF*C, ...) is what K1 and K2 take: they run any number of channels.  The
+kernels assume the stationary discretization Q = Pinf - A Pinf A' (the
+``build_modulator_ssm`` default), under which one prediction from (0, Pinf)
+is exactly (0, Pinf); the pass-level entry points check it once per call.
 """
 
 from __future__ import annotations
@@ -209,6 +214,102 @@ def fused_adf_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, varian
     return ms, Ps, lZ, tts, tns
 
 
+def fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant,
+                       z_floor, s_chunk=0):
+    """K4 reference: ADF forward sweep from zero sites over BF files at once.
+
+    y, obs (T, BF) (obs 0/1); A, Q, Pinf (BF, C, bs, bs); H (BF, C, bs);
+    W (BF, D, N); xi (S, N), wn (S,) shared unit sigma points; sn2 (BF,).
+    Returns ms (T, BF, C, bs), Ps (T, BF, C, bs, bs), lZ (T, BF), ttau, tnu
+    (T, BF, C).
+
+    The sigma points are taken ``s_chunk`` at a time (0 = all S in one chunk)
+    with the online max-rescale of ``_adf_kernel_mb``: per chunk the chunk max
+    ``mc`` (0 where not finite), ``m_new = max(m_run, mc)``, the chunk's sums
+    at shift ``m_new``, and the totals so far rescaled by exp(m_run - m_new)
+    (the first chunk is not rescaled).  Per file the result equals
+    ``fused_adf_plain`` up to that reordering.
+    """
+    T, BF = y.shape
+    _, C, bs = H.shape
+    D = W.shape[1]
+    S = wn.shape[0]
+    sc = s_chunk if s_chunk else S
+    dt_, dev = A.dtype, A.device
+    lk_fn = LINKS[link]
+    At = A.transpose(-1, -2)
+    Wt = W.transpose(-1, -2)  # (BF, N, D)
+    tiny = torch.finfo(dt_).tiny
+    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+    observed = obs > 0
+    m = torch.zeros((BF, C, bs), dtype=dt_, device=dev)
+    P = Pinf
+    ms = torch.empty((T, BF, C, bs), dtype=dt_, device=dev)
+    Ps = torch.empty((T, BF, C, bs, bs), dtype=dt_, device=dev)
+    lZ = torch.empty((T, BF), dtype=dt_, device=dev)
+    tts = torch.empty((T, BF, C), dtype=dt_, device=dev)
+    tns = torch.empty((T, BF, C), dtype=dt_, device=dev)
+    for t in range(T):
+        mp, Pp = _predict(A, At, Q, m, P)
+        fmu, PH, HPH = _observe(H, mp, Pp)  # (BF, C)
+        mu_z, mu_g = fmu[:, None, :D], fmu[:, None, D:]  # (BF, 1, .)
+        s2_z, s2_g = HPH[:, None, :D], HPH[:, None, D:]
+        sd_g = torch.sqrt(torch.clamp_min(s2_g, 0.0))
+        m_run = tot = None
+        for c0 in range(0, S, sc):
+            xn = mu_g + sd_g * xi[c0:c0 + sc]  # (BF, sc, N)
+            a = lk_fn(xn) @ Wt  # (BF, sc, D)
+            if variant == "sq":
+                a = torch.sqrt(torch.clamp_min(a, 1e-12))
+            s2e = sn2[:, None] + (a * a * s2_z).sum(-1)  # (BF, sc)
+            resid = y[t][:, None] - (a * mu_z).sum(-1)
+            log_norm = -0.5 * (resid * resid / s2e + torch.log(s2e) + _LOG2PI)
+            mc = log_norm.amax(dim=1)
+            mc = torch.where(torch.isfinite(mc), mc, torch.zeros_like(mc))
+            m_new = mc if m_run is None else torch.maximum(m_run, mc)
+            wns = wn[c0:c0 + sc] * torch.exp(log_norm - m_new[:, None])
+            rs = resid / s2e
+            dmu_g = (xn - mu_g) / s2_g
+            part = (  # Z (BF,), A1, A2 (BF, D), G1, G2 (BF, N)
+                wns.sum(1),
+                ((wns * rs)[..., None] * a).sum(1),
+                (wns[..., None] * (a * a) * (rs * rs - 1.0 / s2e)[..., None]).sum(1),
+                (wns[..., None] * dmu_g).sum(1),
+                (wns[..., None] * (dmu_g * dmu_g - 1.0 / s2_g)).sum(1),
+            )
+            if tot is None:
+                tot = part
+            else:
+                al = torch.exp(m_run - m_new)
+                tot = tuple(x * al.reshape((BF,) + (1,) * (x.dim() - 1)) + xc
+                            for x, xc in zip(tot, part))
+            m_run = m_new
+        Z, A1, A2, G1, G2 = tot
+        # raw-scale Z floor (likModulatorNMFPower.m:55), folded into Zi
+        Z0 = torch.clamp_min(Z, tiny)
+        lZ_raw = m_run + torch.log(Z0)
+        lZk = torch.clamp_min(lZ_raw, log_floor)
+        Zi = (torch.exp(lZ_raw - lZk) / Z0)[:, None]
+        dlZ_z, dlZ_g = Zi * A1, Zi * G1
+        dlZ = torch.cat([dlZ_z, dlZ_g], dim=1)
+        d2lZ = torch.cat([Zi * A2 - dlZ_z * dlZ_z, Zi * G2 - dlZ_g * dlZ_g], dim=1)
+        # ---- damped ADF site update from zero incoming sites --------------
+        denom = 1.0 + d2lZ * HPH
+        tt = torch.clamp_min(damp * (-d2lZ / denom), 0.0)
+        tn = damp * ((dlZ - fmu * d2lZ) / denom)
+        # unobserved steps: zero sites (a no-op update) and lZ = 0
+        seen = observed[t][:, None]
+        tt = torch.where(seen, tt, torch.zeros_like(tt))
+        tn = torch.where(seen, tn, torch.zeros_like(tn))
+        lZ[t] = torch.where(observed[t], lZk, torch.zeros_like(lZk))
+        tts[t] = tt
+        tns[t] = tn
+        m, P = _update(tt, tn, fmu, HPH, PH, mp, Pp)
+        ms[t] = m
+        Ps[t] = P
+    return ms, Ps, lZ, tts, tns
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -335,7 +436,56 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     return ms, Ps, lZ, tt, tn
 
 
-WRAPPERS = (fused_fwd, fused_bwd, fused_adf)
+def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_floor,
+                 s_chunk=0):
+    """K4: ADF forward sweep over BF files in one launch, a CTA a file (see
+    ``fused_adf_mb_plain``).  ``s_chunk`` > 0 streams the sigma points with
+    the online rescale; the kernel's chunk is then its thread count whatever
+    the value (see ``csrc/fused_adf_mb.cu``).  0 takes all S under one shift."""
+    if _on_cpu(y, obs, A, Q, Pinf, H, W, xi, wn, sn2):
+        return fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp=damp,
+                                  link=link, variant=variant, z_floor=z_floor,
+                                  s_chunk=s_chunk)
+    from nsgp_tpu_torch.ops import _build
+
+    T, BF = y.shape
+    _, C, bs = H.shape
+    _, D, N = W.shape
+    S = wn.shape[0]
+    mat = (BF, C, bs, bs)
+    _check_shapes("fused_adf_mb", bs, T, obs=(obs, (T, BF)), A=(A, mat), Q=(Q, mat),
+                  Pinf=(Pinf, mat), H=(H, (BF, C, bs)), W=(W, (BF, D, N)), xi=(xi, (S, N)),
+                  sn2=(sn2, (BF,)))
+    if link not in LINKS or variant not in ("amp", "sq"):
+        raise ValueError(f"unsupported link/variant {link!r}/{variant!r}")
+    if BF < 1 or s_chunk < 0:
+        raise ValueError(f"fused_adf_mb needs BF >= 1 and s_chunk >= 0, got {BF}, {s_chunk}")
+    lib = _build.library()
+    is_f64 = int(A.dtype == torch.float64)
+    if C != D + N:
+        raise ValueError(f"fused_adf_mb needs C = D + N channels, got C={C}, D={D}, N={N}")
+    if C > lib.nsgp_adf_threads():
+        raise ValueError(f"fused_adf_mb carries one channel a thread: C={C} exceeds "
+                         f"{lib.nsgp_adf_threads()}")
+    if lib.nsgp_adf_smem_bytes(is_f64, D, N) > _SMEM_LIMIT:
+        raise ValueError(f"fused_adf_mb: D={D}, N={N} exceeds the kernel's shared layout")
+    args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2)]
+    dt_, dev = A.dtype, A.device
+    ms = torch.empty((T, BF, C, bs), dtype=dt_, device=dev)
+    Ps = torch.empty((T, BF, C, bs, bs), dtype=dt_, device=dev)
+    lZ = torch.empty((T, BF), dtype=dt_, device=dev)
+    tt = torch.empty((T, BF, C), dtype=dt_, device=dev)
+    tn = torch.empty((T, BF, C), dtype=dt_, device=dev)
+    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+    _launch("fused_adf_mb", lib.nsgp_fused_adf_mb, is_f64, bs, *map(_ptr, args),
+            float(damp), log_floor, T, BF, D, N, S, int(s_chunk > 0), int(link == "exp"),
+            int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn),
+            device=dev)
+    fused_adf_mb.launches += 1
+    return ms, Ps, lZ, tt, tn
+
+
+WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb)
 
 
 def reset_launches() -> None:
@@ -356,6 +506,20 @@ def _flat(ms, Ps):
     return ms.reshape(T, -1), Ps.reshape(T, -1)
 
 
+def check_stationary(ssm: BlockSSM) -> None:
+    """Raise unless Q = Pinf - A Pinf A' (any leading axes): the kernels
+    start from (0, Pinf) and rely on one prediction leaving it unchanged.
+    Tolerance relative to max |Pinf|: 1e-5 in float32, 1e-10 in float64."""
+    gap = ssm.Q - (ssm.Pinf - ssm.A @ ssm.Pinf @ ssm.A.transpose(-1, -2))
+    tol = 1e-10 if ssm.A.dtype == torch.float64 else 1e-5
+    rel = float(gap.abs().max() / ssm.Pinf.abs().max())
+    if not rel <= tol:
+        raise ValueError(
+            f"the fused passes need the stationary discretization Q = Pinf - A Pinf A' "
+            f"(max gap {rel:.3e} of max|Pinf|, tolerance {tol:g}); build the model with "
+            f"discretization='stationary'")
+
+
 def smoother_fused(ssm: BlockSSM, ms, Ps):
     """RTS pass over a (T, C, bs) / (T, C, bs, bs) filtered trajectory;
     returns C-major flat (T, C*bs), (T, C*bs*bs) (``smoother_pallas_bmajor``)."""
@@ -366,6 +530,7 @@ def smoother_fused(ssm: BlockSSM, ms, Ps):
 def filter_smoother_fused(ssm: BlockSSM, sites: Sites):
     """Fixed-site filter + RTS smoother (``filter_smoother_pallas``).
     Returns C-major flat smoothed (ms (T, C*bs), Ps (T, C*bs*bs))."""
+    check_stationary(ssm)
     ms, Ps = fused_fwd(sites.ttau, sites.tnu, ssm.A, ssm.Q, ssm.Pinf, ssm.H)
     return smoother_fused(ssm, ms, Ps)
 
@@ -373,11 +538,30 @@ def filter_smoother_fused(ssm: BlockSSM, sites: Sites):
 def adf_filter_fused(mp: MomentParams, ssm: BlockSSM, W, sn2, y, mask, damp: float):
     """ADF sweep from zero sites (``adf_filter_pallas``).  Returns filtered
     (ms (T, C, bs), Ps (T, C, bs, bs)), lZ (T,), Sites (T, C)."""
+    check_stationary(ssm)
     dt_, dev = ssm.A.dtype, ssm.A.device
     wn, xi = sigma_points(mp, dt_, dev)
     ms, Ps, lZ, tt, tn = fused_adf(
         torch.nan_to_num(y).to(dt_), mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H,
         W.to(dt_), xi, wn, torch.as_tensor(sn2, dtype=dt_, device=dev),
         damp=damp, link=mp.link, variant=mp.variant, z_floor=mp.z_floor,
+    )
+    return ms, Ps, lZ, Sites(tt, tn)
+
+
+def adf_filter_fused_mb(mp: MomentParams, ssmB: BlockSSM, WB, sn2B, yB, maskB, damp: float,
+                        s_chunk: int = 0):
+    """ADF sweep from zero sites over BF files (``adf_filter_pallas_mb``).
+
+    ``ssmB`` has leaves (BF, C, ...); WB (BF, D, N); sn2B (BF,); yB, maskB
+    (T, BF).  Returns filtered (ms (T, BF, C, bs), Ps (T, BF, C, bs, bs)),
+    lZ (T, BF), Sites (T, BF, C)."""
+    check_stationary(ssmB)
+    dt_, dev = ssmB.A.dtype, ssmB.A.device
+    wn, xi = sigma_points(mp, dt_, dev)
+    ms, Ps, lZ, tt, tn = fused_adf_mb(
+        torch.nan_to_num(yB).to(dt_), maskB.to(dt_), ssmB.A, ssmB.Q, ssmB.Pinf, ssmB.H,
+        WB.to(dt_), xi, wn, torch.as_tensor(sn2B, dtype=dt_, device=dev),
+        damp=damp, link=mp.link, variant=mp.variant, z_floor=mp.z_floor, s_chunk=s_chunk,
     )
     return ms, Ps, lZ, Sites(tt, tn)

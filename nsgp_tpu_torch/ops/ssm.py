@@ -136,9 +136,16 @@ def build_modulator_ssm(
 
     Per-channel blocks padded to bs = max(2*tau1, tau3) and stacked on a
     leading channel axis; dtype and device follow ``sub_sigma2``.
+
+    The model is assembled and discretized in float64 and cast to that dtype
+    at the end: Q = Pinf - A Pinf A' cancels to ~1e-10 of Pinf for a trained
+    lengthscale of 1e5 samples, which formed in float32 (eps 6e-8) comes out
+    indefinite and drives the filter's variances negative over a long signal.
     """
     sub_sigma2 = torch.atleast_1d(torch.as_tensor(sub_sigma2))
-    dtype, dev = sub_sigma2.dtype, sub_sigma2.device
+    out_dtype, dev = sub_sigma2.dtype, sub_sigma2.device
+    dtype = torch.float64
+    sub_sigma2 = sub_sigma2.to(dtype)
     as1d = lambda x: torch.atleast_1d(torch.as_tensor(x, dtype=dtype, device=dev))
     sub_ell, sub_omega = as1d(sub_ell), as1d(sub_omega)
     mod_sigma2, mod_ell = as1d(mod_sigma2), as1d(mod_ell)
@@ -168,8 +175,24 @@ def build_modulator_ssm(
     pad[:D, 2 * tau1:] = 1.0
     pad[D:, tau3:] = 1.0
     pad_eye = torch.diag_embed(torch.as_tensor(pad, dtype=dtype, device=dev))
-    return BlockSSM(F=F, LQcLT=LQcLT, H=H, Pinf=Pinf, A=A, Q=Q,
-                    pad_eye=pad_eye, D=D, N=N)
+    leaves = (x.to(out_dtype) for x in (F, LQcLT, H, Pinf, A, Q, pad_eye))
+    return BlockSSM(*leaves, D=D, N=N)
+
+
+def stack_ssms(ssms) -> BlockSSM:
+    """Per-file models of one structure -> leaves with a leading file axis,
+    (BF, C, ...).  Each file keeps its own stationary discretization."""
+    first = ssms[0]
+    leaves = [torch.stack(xs) for xs in zip(*(s[:7] for s in ssms))]
+    return BlockSSM(*leaves, D=first.D, N=first.N)
+
+
+def flatten_files(ssmB: BlockSSM) -> BlockSSM:
+    """(BF, C, ...) -> (BF*C, ...), file-major: the channel axis the
+    filter and smoother kernels take (they run any number of channels)."""
+    BF = ssmB.F.shape[0]
+    leaves = [x.reshape((-1,) + x.shape[2:]) for x in ssmB[:7]]
+    return BlockSSM(*leaves, D=BF * ssmB.D, N=BF * ssmB.N)
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,3 @@
-"""Utilities: matmul-precision guard."""
+"""Utilities: matmul-precision guard, device rule, metrics."""
 
-from nsgp_tpu_torch.utils import precision  # noqa: F401
+from nsgp_tpu_torch.utils import device, metrics, precision  # noqa: F401

@@ -1,0 +1,22 @@
+"""Where the port's entry points place their work.
+
+The rule: the card unless the caller asks for the CPU.  ``device=None``
+means ``torch.device("cuda")``; without a CUDA device that raises, it never
+falls back to the CPU quietly.  ``"cpu"`` (or any explicit device) is
+honoured as given; the tests pass it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the card (``RuntimeError`` without one); else as asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; pass "
+                "device='cpu' to run the plain versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

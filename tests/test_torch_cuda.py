@@ -8,7 +8,11 @@ repository's conftest, which imports it, is left out):
 
 Every block size class the kernels instantiate is reached through a kernel
 pair (bs 2, 3, 4, 6, 8), with both links and variants, a NaN gap, and a
-sigma-point count above one thread tile (N=4: 193 ut9 points > 128).
+sigma-point count above one thread tile (N=4: 193 ut9 points > 128).  The
+batched ADF kernel (K4) is held against its plain version at batch width
+(several files, masks that differ) and at mixture width (D=48, N=9, 3973
+sigma points, streamed and in one chunk), with more moment rows than threads
+(K = 129 > 128), and K1/K2 at the batched paths' channel counts (190, 57).
 Tolerances relative to the reference's max |value|: 1e-9 in float64 (the
 two differ in summation order and FMA contraction only), 1e-4 in float32
 at these short lengths.
@@ -18,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior
+from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_kalman as fk
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
@@ -115,3 +119,110 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="Ps has shape"):
         fk.fused_bwd(torch.zeros((T, C, bs), device=cuda),
                      torch.zeros((T, C, bs, bs - 1), device=cuda), ssm.A, ssm.Q, pad)
+
+
+def _files(BF, D, N, dtype, dev, link="softplus", variant="sq", k1="exp", k2="matern52",
+           steps=T):
+    """BF files of one structure: per-file hyperparameters, signals from the
+    prior, masks that differ per file.  Returns (model, paramsB, yB, maskB)
+    with yB, maskB as (T, BF)."""
+    model = GTNMFModel(D=D, N=N, kernel1=k1, kernel2=k2, link=link, variant=variant)
+    plist, ys, masks = [], [], []
+    for b in range(BF):
+        rng = np.random.default_rng(b)
+        p = GTNMFParams(
+            lik=np.float64(0.02 + 0.01 * b), sub_var=np.linspace(0.5, 1.5, D) / D,
+            sub_len=np.linspace(20.0, 80.0 + 5 * b, D), omega=np.linspace(0.1, 2.5, D),
+            mod_var=np.full(N, 0.5), mod_len=np.linspace(300.0, 600.0, N),
+            W=rng.uniform(0.2, 1.0, (D, N)),
+        ).to(dtype=dtype, device=dev)
+        y, _, _ = sample_prior(torch.Generator().manual_seed(b), model, p, steps)
+        mask = torch.ones(steps, dtype=torch.bool, device=dev)
+        mask[10 + 3 * b: 18 + 5 * b] = False
+        plist.append(p)
+        ys.append(y)
+        masks.append(mask)
+    return model, stack_params(plist), torch.stack(ys, 1), torch.stack(masks, 1)
+
+
+def _adf_mb_pair(model, pB, yB, maskB, s_chunk):
+    ssmB = model.build_ssm_batch(pB)
+    mp = model.moment_params()
+    dt_, dev = ssmB.A.dtype, ssmB.A.device
+    out = fk.adf_filter_fused_mb(mp, ssmB, pB.W, pB.lik, yB, maskB, 0.5, s_chunk)
+    wn, xi = fk.sigma_points(mp, dt_, dev)
+    ref = fk.fused_adf_mb_plain(yB, maskB.to(dt_), ssmB.A, ssmB.Q, ssmB.Pinf, ssmB.H, pB.W, xi,
+                                wn, pB.lik, damp=0.5, link=mp.link, variant=mp.variant,
+                                z_floor=mp.z_floor, s_chunk=s_chunk)
+    return (out[0], out[1], out[2], out[3].ttau, out[3].tnu), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("BF,D,N,link,variant,k1,k2,s_chunk", [
+    (5, 3, 2, "softplus", "amp", "matern32", "matern52", 0),
+    (5, 3, 2, "exp", "sq", "exp", "matern52", 7),
+    (3, 4, 4, "softplus", "sq", "exp", "matern32", 64),  # 193 points: two tiles, streamed
+    (3, 4, 4, "softplus", "sq", "exp", "matern32", 0),  # ... and under one shift
+    (2, 60, 4, "softplus", "sq", "exp", "exp", 0),  # K = 129 moment rows > 128 threads
+    (1, 48, 9, "softplus", "sq", "exp", "matern52", 256),  # mixture width, 3973 points
+])
+def test_adf_mb_kernel_matches_plain(cuda, BF, D, N, link, variant, k1, k2, s_chunk, dtype):
+    steps = 24 if N == 9 else T
+    model, pB, yB, maskB = _files(BF, D, N, dtype, cuda, link, variant, k1, k2, steps)
+    fk.reset_launches()
+    got, ref = _adf_mb_pair(model, pB, yB, maskB, s_chunk)
+    assert _rel(got, ref) <= TOL[dtype]
+    assert fk.fused_adf_mb.launches == 1 and fk.fused_adf.launches == 0
+    for b in range(BF):  # masked steps: zero sites, lZ = 0
+        gap = slice(10 + 3 * b, 18 + 5 * b)
+        assert float(got[3][gap, b].abs().max()) == 0.0 and float(got[2][gap, b].abs().max()) == 0.0
+    again, _ = _adf_mb_pair(model, pB, yB, maskB, s_chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed-order sums
+
+
+@pytest.mark.cuda
+def test_adf_mb_chunked_agrees_with_one_chunk_at_mixture_width(cuda):
+    model, pB, yB, maskB = _files(1, 48, 9, torch.float64, cuda, steps=24)
+    one, _ = _adf_mb_pair(model, pB, yB, maskB, 0)
+    streamed, _ = _adf_mb_pair(model, pB, yB, maskB, 256)
+    assert _rel(streamed, one) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_files", [(10, 16, 3), (1, 48, 9)])  # C = 190, 57
+def test_fwd_bwd_kernels_at_batched_channel_counts(cuda, C_files):
+    BF, D, N = C_files
+    model, pB, _, _ = _files(BF, D, N, torch.float64, cuda, k1="matern32")
+    from nsgp_tpu_torch.ops.ssm import flatten_files
+
+    flat = flatten_files(model.build_ssm_batch(pB))
+    C = flat.num_channels
+    assert C == BF * (D + N)
+    rng = np.random.default_rng(3)
+    tt = rng.uniform(0.0, 5.0, (T, C)) * (rng.uniform(size=(T, C)) > 0.2)
+    tt, tn = (torch.tensor(x, device=cuda) for x in (tt, rng.normal(size=(T, C)) * tt))
+    args = (tt, tn, flat.A, flat.Q, flat.Pinf, flat.H)
+    ref = fk.fused_fwd_plain(*args)
+    assert _rel(fk.fused_fwd(*args), ref) <= 1e-9
+    pad = torch.diagonal(flat.pad_eye, dim1=-2, dim2=-1)
+    assert _rel(fk.fused_bwd(*ref, flat.A, flat.Q, pad),
+                fk.fused_bwd_plain(*ref, flat.A, flat.Q, pad)) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_adf_mb_refuses_what_it_cannot_run(cuda):
+    # one thread per channel: C = 130 > 128
+    model, pB, yB, maskB = _files(1, 126, 4, torch.float32, cuda, k1="exp", k2="exp", steps=4)
+    with pytest.raises(ValueError, match="one channel a thread"):
+        _adf_mb_pair(model, pB, yB, maskB, 0)
+    # shared layout over the block's limit (float64, D = 100, N = 9)
+    model, pB, yB, maskB = _files(1, 100, 9, torch.float64, cuda, k1="exp", k2="exp", steps=4)
+    with pytest.raises(ValueError, match="shared layout"):
+        _adf_mb_pair(model, pB, yB, maskB, 0)
+    model, pB, yB, maskB = _files(2, 3, 2, torch.float32, cuda, steps=8)
+    ssmB = model.build_ssm_batch(pB)
+    wn, xi = fk.sigma_points(model.moment_params(), torch.float32, cuda)
+    with pytest.raises(ValueError, match="sn2 has shape"):
+        fk.fused_adf_mb(yB, maskB.float(), ssmB.A, ssmB.Q, ssmB.Pinf, ssmB.H, pB.W, xi, wn,
+                        pB.lik[:1], damp=0.5, link="softplus", variant="sq", z_floor=1e-10)

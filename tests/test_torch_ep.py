@@ -40,7 +40,7 @@ def _np(x):
 
 def _port(jm, jp):
     return GTNMFModel(*jm), params_from_numpy(
-        {k: np.asarray(v) for k, v in jp._asdict().items()}, dtype=torch.float64)
+        {k: np.asarray(v) for k, v in jp._asdict().items()}, device="cpu", dtype=torch.float64)
 
 
 def test_seq_backend_reproduces_golden():
@@ -58,7 +58,7 @@ def test_seq_backend_reproduces_golden():
                                       maxval=1.0))
     model, params = _port(jm, jp)
     r = tep.ep_infer(model, params, torch.tensor(g["y"]), None,
-                     tep.EPConfig(ep_itts=5, backend="seq"))
+                     tep.EPConfig(ep_itts=5, backend="seq"), device="cpu")
     np.testing.assert_allclose(_np(r.Eft), g["Eft"], atol=1e-9)
     np.testing.assert_allclose(_np(r.Varft), g["Varft"], atol=1e-9)
     np.testing.assert_allclose(_np(r.nlZ), g["nlZ"], rtol=1e-9)
@@ -95,7 +95,7 @@ def test_fused_backend_matches_jax_pallas(case):
                        jep.EPConfig(ep_itts=3, backend="pallas", pallas_block=64))
     model, params = _port(jm, jp)
     r_t = tep.ep_infer(model, params, torch.tensor(y), None,
-                       tep.EPConfig(ep_itts=3, backend="fused"))
+                       tep.EPConfig(ep_itts=3, backend="fused"), device="cpu")
     for f in ("Eft", "Varft", "lZ", "ms", "Ps"):
         a, b = _np(getattr(r_t, f)), np.asarray(getattr(r_j, f))
         assert a.shape == b.shape, f
@@ -114,13 +114,19 @@ def test_unported_config_fields_raise(field, value):
     model, params = _port(*_toy(D=2, N=1))
     y = torch.zeros(8, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match=field):
-        tep.ep_infer(model, params, y, None, tep.EPConfig(**{field: value}))
+        tep.ep_infer(model, params, y, None, tep.EPConfig(**{field: value}), device="cpu")
 
 
 def test_backend_and_device_are_checked():
     model, params = _port(*_toy(D=2, N=1))
     y = torch.zeros(8, dtype=torch.float64)
     with pytest.raises(ValueError, match="backend"):
-        tep.ep_infer(model, params, y, None, tep.EPConfig(backend="pallas"))
-    with pytest.raises(ValueError, match="one device"):
-        tep.ep_infer(model, params, y.to("meta"), None, tep.EPConfig(backend="fused"))
+        tep.ep_infer(model, params, y, None, tep.EPConfig(backend="pallas"), device="cpu")
+    # inputs follow the device asked for: parameters held elsewhere are moved,
+    # not refused, and the caller's copy stays where it was
+    r = tep.ep_infer(model, params, y, torch.ones(8, dtype=torch.bool),
+                     tep.EPConfig(ep_itts=1, backend="fused"), device=torch.device("cpu"))
+    assert r.Eft.device.type == "cpu" and params.lik.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tep.ep_infer(model, params, y, None, tep.EPConfig(backend="fused"))

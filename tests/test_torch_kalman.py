@@ -51,7 +51,7 @@ def toy(kernel2):
     jm = JModel(D=D, N=N, kernel1="matern32", kernel2=kernel2)
     jp = JParams(**{k: jnp.asarray(v) for k, v in p.items()})
     tm = GTNMFModel(*jm)
-    tp = params_from_numpy(p, dtype=torch.float64)
+    tp = params_from_numpy(p, device="cpu", dtype=torch.float64)
     return jm, jp, jm.build_ssm(jp), tm, tp, tm.build_ssm(tp)
 
 

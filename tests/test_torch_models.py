@@ -82,7 +82,7 @@ def test_build_modulator_ssm_matches(k1, k2, disc):
 def test_flat_log_roundtrip_matches():
     p = _params(4, 3, seed=1)
     jp = jg.GTNMFParams(**{k: jnp.asarray(v) for k, v in p.items()})
-    tp = convert.params_from_numpy(p, dtype=F64)
+    tp = convert.params_from_numpy(p, device="cpu", dtype=F64)
     w_j = jp.to_flat_log()
     w_t = tp.to_flat_log()
     _close(w_t, w_j)
@@ -94,7 +94,7 @@ def test_flat_log_roundtrip_matches():
 
 
 def test_params_module_moves_and_casts():
-    tp = convert.params_from_numpy(_params(3, 2), dtype=F64)
+    tp = convert.params_from_numpy(_params(3, 2), device="cpu", dtype=F64)
     assert sorted(name for name, _ in tp.named_buffers()) == sorted(tg.PARAM_NAMES)
     t32 = tp.to(torch.float32)
     assert all(b.dtype == torch.float32 for b in t32.buffers())
@@ -107,7 +107,7 @@ def test_params_module_moves_and_casts():
 
 
 def test_load_trained_matches_pipeline():
-    m_t, p_t = convert.load_trained(TRAINED)
+    m_t, p_t = convert.load_trained(TRAINED, device="cpu")
     m_j, p_j = pipeline.load_trained(TRAINED)
     assert tuple(m_t) == tuple(m_j)
     for k in tg.PARAM_NAMES:
@@ -119,7 +119,7 @@ def test_load_trained_matches_pipeline():
 
 
 def test_sample_prior_seeded_and_consistent():
-    tp = convert.params_from_numpy(_params(3, 2), dtype=F64)
+    tp = convert.params_from_numpy(_params(3, 2), device="cpu", dtype=F64)
     model = tg.GTNMFModel(D=3, N=2, variant="sq")
     y1, sub, g = tg.sample_prior(torch.Generator().manual_seed(4), model, tp, 300)
     y2, _, _ = tg.sample_prior(torch.Generator().manual_seed(4), model, tp, 300)

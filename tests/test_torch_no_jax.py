@@ -18,17 +18,37 @@ import numpy as np
 import torch
 import nsgp_tpu_torch
 from nsgp_tpu_torch import convert
+from nsgp_tpu_torch.apps import missing_data, source_sep
+from nsgp_tpu_torch.inference import batched, registry
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
-from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior
+from nsgp_tpu_torch.models import mixture
+from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior, stack_params
 from nsgp_tpu_torch.ops import _build, cubature, fused_kalman, kalman, kernels, moments, ssm
-from nsgp_tpu_torch.utils import precision
+from nsgp_tpu_torch.utils import device, metrics, precision
 
 model, params = convert.load_trained(
-    "results/trained/music/trained_piano_matern32.npz", dtype=torch.float64)
+    "results/trained/music/trained_piano_matern32.npz", device="cpu", dtype=torch.float64)
 y, _, _ = sample_prior(torch.Generator().manual_seed(0), model, params, 64)
 for backend in ("seq", "fused"):
-    r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, backend=backend))
+    r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, backend=backend), device="cpu")
     assert torch.isfinite(r.nlZ).all()
+mask = missing_data.make_gap_mask(64, [(20, 8)])
+paramsB = stack_params([params, params])
+g = missing_data.fill_gaps_batch(model, paramsB, torch.stack([y, y]), torch.stack([mask, mask]),
+                                 n_samples=4, device="cpu", ep_itts=2, backend="fused")
+assert torch.isfinite(g.rmse_gaps).all() and g.result.nlZ.shape == (2, 2)
+small = [convert.load_trained(f"results/trained/source_sep/trained_011PFNOM_M{n}_exp.npz",
+                              device="cpu", dtype=torch.float64) for n in (60, 64)]
+models, plist = zip(*small)
+jm, jp, sl = mixture.join_models(models, plist, lik=1e-4)
+assert (jm.D, jm.N) == (32, 6) and len(sl.sub) == 2
+r = registry.infer("ep", model, params, y[:16], None, device="cpu", ep_itts=1)
+assert torch.isfinite(metrics.rmse(r.Eft, torch.zeros_like(r.Eft))).all()
+try:
+    device.resolve_device(None)
+    assert torch.cuda.is_available()
+except RuntimeError:
+    pass
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "nsgp_tpu"))
 print("LOADED", bad)
