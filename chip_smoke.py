@@ -21,9 +21,11 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    T=2048 from its prior, 3 sweeps on the card vs the CPU (plain versions).
 4. K4 fused_adf_mb against its plain version: (a) batch width (BF=10, D=16,
    N=3, 77 sigma points, T=4096, masks that differ per file), (b) mixture
-   width (BF=1, D=48, N=9, 3973 sigma points, s_chunk=256, T=512), each in
-   float64 and float32, and s_chunk 0 against 256 on the kernel; K1 and K2
-   at the batched paths' channel counts C=190 and C=57.
+   width (BF=1, D=48, N=9, 3973 sigma points, s_chunk=256, T=512; then
+   BF=3, three clusters of eight CTAs, T=128, signals and gaps that differ
+   per file), each in float64 and float32, and s_chunk 0 against 256 on the
+   kernel; K1 and K2 at the batched paths' channel counts C=190 and C=57.
+   Every comparison also runs the kernel twice and wants the same bits.
 5. the batched path: ``fill_gaps_batch(engine="ep", backend="fused")`` over
    the ten trained music models in one batch, padded to the corpus length
    T=53 248 with each file's own length and six 321-sample gaps, float32,
@@ -87,6 +89,7 @@ GAP_POSITIONS = {
 SOURCES = [os.path.join("results", "trained", "source_sep", f"trained_011PFNOM_M{n}_exp.npz")
            for n in (60, 64, 67)]
 T_MIX, T_MIX_F64, T_MIX_KERNEL = 16_000, 2048, 512
+BF_MIX_KERNEL, T_MIX_FILES = 3, 128  # K4 with several clusters: files of the mixture model
 MIX_KW = dict(s_chunk=256, moment_chunk=64, ep_fraction=0.75, damping=(0.025,), ep_itts=3,
               backend="fused")
 MIX_LIK = 1e-4
@@ -112,8 +115,8 @@ PEAK_FLOPS_F32 = 67e12
 KERNELS = {
     "fused_fwd": ("nsgp_tpu/ops/pallas_kalman.py:112", "fused_kalman.cu"),  # _fwd_kernel
     "fused_bwd": ("nsgp_tpu/ops/pallas_kalman.py:158", "fused_kalman.cu"),  # _bwd_kernel
-    "fused_adf": ("nsgp_tpu/ops/pallas_kalman.py:226", "fused_kalman.cu"),  # _adf_kernel
-    "fused_adf_mb": ("nsgp_tpu/ops/pallas_kalman.py:341", "fused_adf_mb.cu"),  # _adf_kernel_mb
+    "fused_adf": ("nsgp_tpu/ops/pallas_kalman.py:226", "fused_adf.cuh"),  # _adf_kernel
+    "fused_adf_mb": ("nsgp_tpu/ops/pallas_kalman.py:341", "fused_adf_mb.cuh"),  # _adf_kernel_mb
 }
 
 
@@ -350,6 +353,8 @@ def compare(label, name, kern, plain, tol, time_reps, timed=None):
     import torch
 
     out_k = kern()
+    if not all(torch.equal(a, b) for a, b in zip(out_k, kern())):
+        raise AssertionError(f"{name} ({label}): two runs on the same inputs differ in their bits")
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -398,8 +403,9 @@ def single_cases(model, params, y, mask, sites_np, steps=None, timing_only=False
     }
 
 
-def adf_mb_case(model, paramsB, yB, maskB, s_chunk, steps=None):
-    """(kernel call, plain call) for K4; yB, maskB (BF, T)."""
+def adf_mb_case(model, paramsB, yB, maskB, s_chunk, steps=None, **kernel_only):
+    """(kernel call, plain call) for K4; yB, maskB (BF, T).  ``kernel_only``
+    goes to the kernel's wrapper alone (the cycle probe's library)."""
     from nsgp_tpu_torch.ops import fused_kalman as fk
 
     ssmB = model.build_ssm_batch(paramsB)
@@ -410,7 +416,8 @@ def adf_mb_case(model, paramsB, yB, maskB, s_chunk, steps=None):
     args = (yB[:, :n].T.contiguous().to(dt_), maskB[:, :n].T.contiguous().to(dt_), ssmB.A,
             ssmB.Q, ssmB.Pinf, ssmB.H, paramsB.W, xi, wn, paramsB.lik)
     kw = dict(damp=0.5, link=mp.link, variant=mp.variant, z_floor=mp.z_floor, s_chunk=s_chunk)
-    return lambda: fk.fused_adf_mb(*args, **kw), lambda: fk.fused_adf_mb_plain(*args, **kw)
+    return (lambda: fk.fused_adf_mb(*args, **kw, **kernel_only),
+            lambda: fk.fused_adf_mb_plain(*args, **kw))
 
 
 def wide_cases(model, paramsB, T, seed, timing_only=False):
@@ -583,9 +590,19 @@ def main() -> int:
             _, rel = max_err(kern(), one_chunk())
             ms0 = cuda_ms(one_chunk, 1)
             log(f"phase4b f64 kernel s_chunk=256 vs s_chunk=0: max_rel_err={rel:.3e} "
-                f"(tol {TOL_F64:g}); s_chunk=0 kernel_ms={ms0:.3f} (every point twice)")
+                f"(tol {TOL_F64:g}); s_chunk=0 kernel_ms={ms0:.3f} (one code for both)")
             if not rel <= TOL_F64:
                 raise AssertionError("streamed and one-chunk sigma sums disagree")
+        # several files of the mixture model: a cluster a file, indexed by
+        # blockIdx.x / R and % R; windows of the signal and gaps that differ
+        yF = y_mix[: BF_MIX_KERNEL * T_MIX_FILES].reshape(BF_MIX_KERNEL, T_MIX_FILES)
+        maskF = torch.ones_like(yF) > 0
+        for b in range(BF_MIX_KERNEL):
+            maskF[b, 20 + 7 * b: 30 + 11 * b] = False
+        kern, plain = adf_mb_case(jm, stack_params([jp] * BF_MIX_KERNEL), yF, maskF, 256)
+        compare(f"phase4b {label} BF={BF_MIX_KERNEL} D={jm.D} N={jm.N} S={S_mix} "
+                f"cluster={fk.adf_launch_shape(S_mix)['cluster']} T={T_MIX_FILES}", "fused_adf_mb",
+                kern, plain, tol, time_reps=1)
     if (jm.D, jm.N, S_mix) != (48, 9, 3973):
         raise AssertionError(f"mixture width is D={jm.D}, N={jm.N}, S={S_mix}")
     C_m, cases = wide_cases(jm, jpB, T_KERNEL, seed=4)
@@ -725,10 +742,10 @@ def main() -> int:
             e["other_shapes"] = other
         return e
 
-    def other(nums, shape, plain_steps):
+    def other(nums, shape, plain_steps, **more):
         return dict(shape=shape, ms=nums["ms"], plain_ms=nums["plain_ms"],
                     plain_steps=plain_steps, max_abs_err=nums["max_abs_err"],
-                    bound_ms=nums["bound"][0], bound_by=nums["bound"][1])
+                    bound_ms=nums["bound"][0], bound_by=nums["bound"][1], **more)
 
     s_shape = f"T={T_MAIN} C={D + N} bs=4 f32"
     w_shape = f"T={T_c} C={C_w} bs={bs_c} f32"
@@ -740,12 +757,13 @@ def main() -> int:
         entry("fused_bwd", single["fused_bwd"], launches_single["fused_bwd"], s_shape, T_PLAIN,
               [other(wide["fused_bwd"], w_shape, T_KERNEL),
                other(wide_m["fused_bwd"], m_shape, T_KERNEL)]),
-        entry("fused_adf", single["fused_adf"], launches_single["fused_adf"],
-              f"T={T_MAIN} D={D} N={N} S=77 bs=4 f32", T_PLAIN),
-        entry("fused_adf_mb", batch, launches_batch["fused_adf_mb"],
-              f"T={T_c} BF={BF_c} D={cmodel.D} N={cmodel.N} S=77 bs={bs_c} f32", T_KERNEL,
-              [other(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 "
-                          f"bs={bs_m} f32", T_MIX_KERNEL)]),
+        dict(entry("fused_adf", single["fused_adf"], launches_single["fused_adf"],
+                   f"T={T_MAIN} D={D} N={N} S=77 bs=4 f32", T_PLAIN), **fk.adf_launch_shape(77)),
+        dict(entry("fused_adf_mb", batch, launches_batch["fused_adf_mb"],
+                   f"T={T_c} BF={BF_c} D={cmodel.D} N={cmodel.N} S=77 bs={bs_c} f32", T_KERNEL,
+                   [other(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 "
+                               f"bs={bs_m} f32", T_MIX_KERNEL, **fk.adf_launch_shape(S_mix))]),
+             **fk.adf_launch_shape(77)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

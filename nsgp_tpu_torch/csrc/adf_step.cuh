@@ -1,0 +1,655 @@
+// The ADF forward sweep shared by K3 (fused_adf.cuh, one signal) and K4
+// (fused_adf_mb.cuh, BF files): one device function, adf_sweep, that both
+// kernels call.  K3 is the BF = 1 instantiation of the same code.
+//
+// What bounds it.  The sweep is a T-long recursion; per observed step it
+// evaluates S sigma points (S * D * N multiply-adds, S * N link values, one
+// log and one exp a point) and reduces them to K = 1 + 2D + 2N totals
+// (Z, A1[D], A2[D], G1[N], G2[N]) before the next step can start.  Bytes and
+// operations are two to four orders below the card's rates: what counts is
+// the latency of one step, that is instructions per sigma point, barriers per
+// step, and how many SMs share the points.
+//
+// What the design does about it.
+//
+// * Register tiles.  A sigma point is owned by a group of G lanes of one
+//   warp (G a power of two with G * DB >= D and G * DB >= N, so G = 4 at
+//   D = 16 and 16 at D = 48); a lane holds DB = 4 subbands of PB points
+//   (PB = 2 with one CTA a file, 4 in a cluster, where there are points
+//   enough to fill the lanes): a[PB][DB] in registers, W read as one 16-byte
+//   load a modulator (stored transposed and padded, W_t[n][d]), the link
+//   values of the PB points as one load a modulator.  s2e and the mean are
+//   finished by a butterfly over the G lanes.  No array is sized by the
+//   runtime D or N.
+// * Link values once a point.  The lanes of a warp first share out the
+//   PT * N link evaluations of the warp's PT = (32 / G) * PB points and
+//   leave them in the warp's own stash in shared memory (__syncwarp only).
+// * Scalars once a point.  Lane p of a group computes point p's s2e,
+//   residual, log-normaliser and weights and hands them round by shuffles
+//   (when G >= PB; narrower models let every lane do all PB).
+// * No terms buffer, no block max, no barrier per tile.  Each lane keeps its
+//   share of the totals in 17 registers (Z, A1 and A2 of its DB subbands,
+//   and for its DB modulators the weighted first and second moments of the
+//   unit point, from which sd / s2_g and 1 / s2_g factor out: the channel
+//   thread scales them to G1 and G2) under its own running shift: a round
+//   whose largest log-normaliser exceeds the shift rescales the lane's
+//   totals, and every point is added at weight exp(ln - shift).  Once per
+//   step the partials are merged in a fixed order: the warp's shift, one
+//   rescale and butterfly sums over the groups of a warp, then the warps'
+//   records in shared memory, then (cluster) the CTAs' records.  A partial
+//   with no point has shift -inf and merges at weight zero.  The "not finite
+//   -> 0" rule is applied to the merged shift once.  No atomics: two runs
+//   give the same bits.  Both s_chunk modes of the wrapper run this one
+//   code; a point is evaluated once in either.
+// * 256 threads (8 warps); the shared layout is a few KB plus the staged
+//   sigma points, whatever D and N.
+// * Hoisted: 1 / s2_g and sd / s2_g once per step and modulator, 1 / s2e once
+//   per point; the CTA's own xi and wn rows are staged in shared memory once
+//   per launch (in the order the warps walk them) when they fit, else read
+//   from global memory through the same pointer (one code path: a branch per
+//   load kept the compiler from batching them and doubled the phase).
+// * 'sq' amplitudes take sqrt_pos (rsqrt and a Newton step, no special-case
+//   branch) in float32: the argument is clamped to >= 1e-12.
+// * A thread-block cluster over the sigma points.  R = min(8, ceil(S / 512))
+//   CTAs work on one file (R = 1 at S = 77 and 193, 8 at S = 3973); rank r
+//   takes every R-th round of points.  Every CTA runs the channel recursion
+//   redundantly on identical inputs; per observed step each publishes its
+//   merged record in its own shared memory (double-buffered by the count of
+//   observed steps), one cluster.sync(), and every channel thread reads the R
+//   records through distributed shared memory in rank order, so all copies
+//   of the recursion stay bit-identical.  Rank 0 stores the outputs.  The
+//   observed flag is uniform over the cluster (all ranks read the same y and
+//   obs), so every CTA reaches every barrier; a last cluster.sync() keeps a
+//   CTA's shared memory alive until no other can read it.
+//
+// Kept: no --use_fast_math, a clamp_min that propagates NaN, the raw-scale Z
+// floor, masked steps that skip the cubature (zero sites, lZ = 0), padded
+// state dims inert.
+//
+// With -DNSGP_CLOCK_PROBE thread 0 of CTA 0 adds up clock64() per phase and
+// writes the sums to `cyc` (tools/probe_adf_cycles.py); the shipped library
+// is built without it and ignores `cyc`.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "nsgp_common.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int ADF_THREADS = 256;
+constexpr int ADF_NW = ADF_THREADS / 32;
+constexpr int ADF_PB_ONE = 2;                // sigma points a lane, one CTA a file
+constexpr int ADF_PB_CLUSTER = 4;            // ... in a cluster (many points: more per lane)
+constexpr int ADF_DB = 4;                    // subbands (and modulators) a lane
+constexpr int ADF_NACC = 1 + 4 * ADF_DB;     // Z, A1, A2, G1, G2 of one lane
+constexpr int ADF_MAX_WIDTH = 32 * ADF_DB;   // most subbands, most modulators
+constexpr int ADF_MAX_CLUSTER = 8;           // the portable cluster size
+constexpr int ADF_POINTS_PER_CTA = 512;      // a CTA more for every so many points
+constexpr int ADF_MAX_PARTIALS = 8;          // max(ADF_NW, ADF_MAX_CLUSTER)
+constexpr size_t ADF_STAGE_LIMIT = 160 * 1024;  // stage xi, wn if the layout stays below
+
+static_assert((ADF_PB_ONE & (ADF_PB_ONE - 1)) == 0 && (ADF_PB_CLUSTER & (ADF_PB_CLUSTER - 1)) == 0,
+              "points a lane must be a power of two");
+static_assert(ADF_NW <= ADF_MAX_PARTIALS && ADF_MAX_CLUSTER <= ADF_MAX_PARTIALS, "");
+
+// CTAs per file: a function of the number of sigma points alone.
+__host__ __device__ inline int adf_cluster_size(int S) {
+  const int r = (S + ADF_POINTS_PER_CTA - 1) / ADF_POINTS_PER_CTA;
+  return r < 1 ? 1 : (r > ADF_MAX_CLUSTER ? ADF_MAX_CLUSTER : r);
+}
+
+// Sigma points a lane takes per round, from the cluster size.
+__host__ __device__ inline int adf_points_per_lane(int R) {
+  return R > 1 ? ADF_PB_CLUSTER : ADF_PB_ONE;
+}
+
+// n values of T that load and store as one access where 16 bytes allow.
+template <typename T, int n>
+struct alignas(sizeof(T) * n >= 16 ? 16 : sizeof(T) * n) Pack {
+  T v[n];
+};
+
+// The thread mapping and the shared layout (offsets in elements of T, every
+// segment a multiple of four elements so the Packs stay aligned).
+struct AdfLayout {
+  int lg, G;      // lanes a point: G = 1 << lg
+  int GW, GC;     // groups a warp, groups a CTA
+  int PT, lgPT;   // points a warp takes per round
+  int Dp;         // padded width G * ADF_DB (subbands and modulators)
+  int rec;        // length of a partial record: G * ADF_NACC totals + the shift
+  int nloc;       // sigma points a CTA walks, rounds * GC * PB
+  int staged;     // xi, wn rows in shared memory
+  int fmu, hph, mug, sdg, Wt, lk, part, cta, xi, wn, total;
+};
+
+__host__ __device__ inline int adf_r4(int x) { return (x + 3) & ~3; }
+
+__host__ __device__ inline AdfLayout adf_layout(int D, int N, int S, int R, size_t elem) {
+  AdfLayout L;
+  const int PB = adf_points_per_lane(R);
+  const int width = D > N ? D : N;
+  L.lg = 0;
+  while ((ADF_DB << L.lg) < width && L.lg < 5) ++L.lg;
+  L.G = 1 << L.lg;
+  L.GW = 32 >> L.lg;
+  L.GC = ADF_NW * L.GW;
+  L.PT = L.GW * PB;
+  L.lgPT = 0;
+  while ((1 << L.lgPT) < L.PT) ++L.lgPT;
+  L.Dp = L.G * ADF_DB;
+  L.rec = adf_r4(L.G * ADF_NACC + 1);
+  const int per_round = R * L.GC * PB;
+  L.nloc = ((S + per_round - 1) / per_round) * L.GC * PB;
+  int o = 0;
+  L.fmu = o; o += L.Dp;
+  L.hph = o; o += L.Dp;
+  L.mug = o; o += L.Dp;
+  L.sdg = o; o += L.Dp;
+  L.Wt = o; o += N * L.Dp;
+  L.lk = o; o += adf_r4(ADF_NW * N * L.PT);
+  L.part = o; o += ADF_NW * L.rec;
+  L.cta = o; o += R > 1 ? 2 * L.rec : 0;
+  const size_t stage = (size_t)adf_r4(L.nloc * N) + adf_r4(L.nloc);
+  L.staged = ((size_t)o + stage) * elem <= ADF_STAGE_LIMIT;
+  L.xi = o; o += L.staged ? adf_r4(L.nloc * N) : 0;
+  L.wn = o; o += L.staged ? adf_r4(L.nloc) : 0;
+  L.total = o;
+  return L;
+}
+
+// Weight of a partial kept under shift m_part in a merge at shift m_all; a
+// partial with no point (shift -inf) weighs zero, whatever m_all is.
+template <typename T>
+__device__ __forceinline__ T shift_scale(T m_part, T m_all) {
+  return m_part == T(-INFINITY) ? T(0) : Num<T>::exp_(m_part - m_all);
+}
+
+// Merge P <= ADF_MAX_PARTIALS partial records in the order p = 0 .. P-1:
+// the merged shift is returned, out[v] is the total of slot[v].  rec(p) is
+// record p; its shift is at index mslot.
+template <typename T, int NV, typename RecFn>
+__device__ __forceinline__ T merge_partials(int P, RecFn rec, int mslot, const int (&slot)[NV],
+                                            T (&out)[NV]) {
+  T m[ADF_MAX_PARTIALS], mall = T(-INFINITY);
+#pragma unroll
+  for (int p = 0; p < ADF_MAX_PARTIALS; ++p) {
+    m[p] = p < P ? rec(p)[mslot] : T(-INFINITY);
+    mall = m[p] > mall ? m[p] : mall;
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) out[v] = T(0);
+#pragma unroll
+  for (int p = 0; p < ADF_MAX_PARTIALS; ++p)
+    if (p < P) {
+      const T sc = shift_scale(m[p], mall);
+      const T* r = rec(p);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) out[v] += r[slot[v]] * sc;
+    }
+  return mall;
+}
+
+// Probe phases: 0 predict, 1 link values, 2 amplitudes, 3 s2e / mean and
+// their butterfly, 4 weights, 5 totals, 6 merge, 7 cluster barrier, 8 site
+// and update; slot ADF_PROBE_PHASES holds the observed steps.
+constexpr int ADF_PROBE_PHASES = 9;
+
+#ifdef NSGP_CLOCK_PROBE
+#define ADF_PROBE_MARK(i)                 \
+  do {                                    \
+    if (probing) {                        \
+      const long long c_now = clock64();  \
+      cycv[i] += c_now - c_last;          \
+      c_last = c_now;                     \
+    }                                     \
+  } while (0)
+#else
+#define ADF_PROBE_MARK(i)
+#endif
+
+// The sweep over one file b = blockIdx.x / R by its cluster of R CTAs.
+// Layouts: y, obs, lZ (T, BF); tt, tn (T, BF, C); ms (T, BF, C, bs);
+// Ps (T, BF, C, bs, bs); A, Q, Pinf (BF, C, bs, bs); H (BF, C, bs);
+// W (BF, D, N); sn2 (BF,); xi (S, N), wn (S,) shared by the files.
+template <typename T, int BS, int PB>
+__device__ __forceinline__ void adf_sweep_pb(
+    const T* __restrict__ y, const T* __restrict__ obs, const T* __restrict__ A_,
+    const T* __restrict__ Q_, const T* __restrict__ Pinf_, const T* __restrict__ H_,
+    const T* __restrict__ W_, const T* __restrict__ xi, const T* __restrict__ wn,
+    const T* __restrict__ sn2_, T damp, T log_floor, int n_steps, int BF, int D, int N, int S,
+    int R, int link_exp_i, int sq_i, T* __restrict__ ms, T* __restrict__ Ps,
+    T* __restrict__ lZ, T* __restrict__ tt_out, T* __restrict__ tn_out,
+    long long* __restrict__ cyc) {
+  constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = R > 1 ? (int)cluster.block_rank() : 0;
+  const int b = blockIdx.x / R;  // the file
+  const int C = D + N;
+  const bool link_exp = link_exp_i != 0, sq = sq_i != 0;
+  const AdfLayout L = adf_layout(D, N, S, R, sizeof(T));
+  const int G = L.G, PT = L.PT, Dp = L.Dp;
+  const int g_lane = lane & (G - 1), grp = lane >> L.lg;
+  const int d0 = g_lane * DB;  // this lane's subbands and modulators
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sh = reinterpret_cast<T*>(smem_raw);
+  T* fmu_z = sh + L.fmu;   // [Dp] subband means, zero beyond D
+  T* hph_z = sh + L.hph;   // [Dp] subband variances, zero beyond D
+  T* mu_g = sh + L.mug;    // [Dp] modulator means, zero beyond N
+  T* sd_g = sh + L.sdg;    // [Dp] sqrt(max(s2_g, 0)), zero beyond N
+  T* Wt = sh + L.Wt;       // [N][Dp] W transposed, zero beyond D
+  T* lk_w = sh + L.lk + w * N * PT;  // [N][PT] this warp's link values
+  T* part = sh + L.part;   // [NW][rec] the warps' partial records
+  T* cta_rec = sh + L.cta; // [2][rec] this CTA's merged record, double-buffered
+  const T* xi_sh = sh + L.xi;  // [nloc][N] this CTA's sigma points, in walking order
+  const T* wn_sh = sh + L.wn;  // [nloc]
+
+  // ---- once per launch: padding, W, the CTA's own sigma points ------------
+  const int round_pts = L.GC * PB;  // points a CTA takes per round
+  for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
+  const T* W = W_ + (size_t)b * D * N;
+  for (int i = tid; i < N * Dp; i += NT) {
+    const int n = i / Dp, d = i - n * Dp;
+    Wt[i] = d < D ? W[d * N + n] : T(0);
+  }
+  if (L.staged) {
+    T* xs = sh + L.xi;
+    T* ws = sh + L.wn;
+    for (int loc = tid; loc < L.nloc; loc += NT) {
+      const int k = loc / round_pts;
+      const int s = (k * R + rank) * round_pts + (loc - k * round_pts);
+      ws[loc] = s < S ? wn[s] : T(0);
+      for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
+    }
+  }
+  const T sn2 = sn2_[b];
+
+  // Channel state (threads tid < C only); ch = this file's channel.
+  const bool chan = tid < C;
+  const size_t ch = (size_t)b * C + tid;
+  T A[BS][BS], Q[BS][BS], P[BS][BS], H[BS], m[BS];
+  if (chan) {
+    load_mat<T, BS>(A, A_ + ch * BS * BS);
+    load_mat<T, BS>(Q, Q_ + ch * BS * BS);
+    load_mat<T, BS>(P, Pinf_ + ch * BS * BS);
+#pragma unroll
+    for (int i = 0; i < BS; ++i) {
+      H[i] = H_[ch * BS + i];
+      m[i] = T(0);
+    }
+  }
+  // Where this channel's two totals sit in a record (Z is at 0).
+  const int own = tid < D ? tid : tid - D;
+  const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
+  const int slots[3] = {0, k1, k1 + DB};
+  const int mslot = G * NACC;
+  T y_next = y[b], obs_next = obs[b];
+  int n_seen = 0;  // observed steps so far: the parity picks the cluster buffer
+  __syncthreads();
+
+#ifdef NSGP_CLOCK_PROBE
+  const bool probing = tid == 0 && blockIdx.x == 0 && cyc != nullptr;
+  long long cycv[ADF_PROBE_PHASES] = {};
+  long long c_last = clock64();
+#endif
+
+  for (int t = 0; t < n_steps; ++t) {
+    const T yk = y_next;
+    const bool observed = obs_next > T(0);  // uniform over the cluster
+    if (t + 1 < n_steps) {
+      y_next = y[(size_t)(t + 1) * BF + b];
+      obs_next = obs[(size_t)(t + 1) * BF + b];
+    }
+
+    // ---- 1. predict and publish the observable marginals ----------------
+    T mp[BS], Pp[BS][BS], PH[BS], fmu = T(0), HPH = T(0);
+    T sd = T(0);  // a modulator's sqrt(max(s2_g, 0))
+    if (chan) {
+      T AP[BS][BS];
+      predict<T, BS>(A, Q, m, P, mp, AP, Pp);
+      observe<T, BS>(H, mp, Pp, fmu, PH, HPH);
+      if (observed) {
+        if (tid < D) {
+          fmu_z[tid] = fmu;
+          hph_z[tid] = HPH;
+        } else {
+          sd = Num<T>::sqrt_(clamp_min(HPH, T(0)));
+          mu_g[own] = fmu;
+          sd_g[own] = sd;
+        }
+      }
+    }
+
+    T tot[3] = {T(0), T(0), T(0)}, m_all = T(0);
+    if (observed) {
+      __syncthreads();
+      ADF_PROBE_MARK(0);
+
+      // ---- 2. this lane's share of the totals, under its own shift -------
+      T acc[NACC], m_run = T(-INFINITY);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = T(0);
+      for (int k = 0;; ++k) {
+        const int loc0 = k * round_pts + w * PT;           // in the CTA's walking order
+        const int s0 = (k * R + rank) * round_pts + w * PT;  // the warp's first point
+        if (s0 >= S) break;                                  // uniform over the warp
+        // rows of the warp's PT points: staged in walking order, or global
+        const T* xi_w = L.staged ? xi_sh + loc0 * N : xi + (size_t)s0 * N;
+        const T* wn_w = L.staged ? wn_sh + loc0 : wn + s0;
+        // link values of the warp's PT points, shared out over the lanes
+        // One CTA a file runs one or two passes of this loop a step, and a
+        // smaller loop body (less code to fetch each step) beats an unrolled
+        // one there; in a cluster the warp takes many rounds and unrolling pays.
+#pragma unroll(PB == ADF_PB_ONE ? 1 : 4)
+        for (int idx = lane; idx < (N << L.lgPT); idx += 32) {
+          const int pt = idx & (PT - 1), n = idx >> L.lgPT;
+          T v = T(0);
+          if (s0 + pt < S) {
+            v = link_fn(mu_g[n] + sd_g[n] * xi_w[pt * N + n], link_exp);
+          }
+          lk_w[n * PT + pt] = v;
+        }
+        __syncwarp();
+        ADF_PROBE_MARK(1);
+        // amplitudes of PB points x DB subbands
+        T a[PB][DB];
+#pragma unroll
+        for (int p = 0; p < PB; ++p)
+#pragma unroll
+          for (int j = 0; j < DB; ++j) a[p][j] = T(0);
+        {
+          const T* lkp = lk_w + grp * PB;
+          const T* wp = Wt + d0;
+#pragma unroll 3
+          for (int n = 0; n < N; ++n) {
+            const Pack<T, PB> lv = *reinterpret_cast<const Pack<T, PB>*>(lkp + n * PT);
+            const Pack<T, DB> wv = *reinterpret_cast<const Pack<T, DB>*>(wp + n * Dp);
+#pragma unroll
+            for (int p = 0; p < PB; ++p)
+#pragma unroll
+              for (int j = 0; j < DB; ++j) a[p][j] += lv.v[p] * wv.v[j];
+          }
+        }
+        __syncwarp();  // the stash may be overwritten by the next round
+        ADF_PROBE_MARK(2);
+        const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
+        const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
+        if (sq) {
+#pragma unroll
+          for (int p = 0; p < PB; ++p)
+#pragma unroll
+            for (int j = 0; j < DB; ++j)
+              a[p][j] = Num<T>::sqrt_pos(clamp_min(a[p][j], T(1e-12)));
+        }
+        T se[PB], mean[PB];
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          se[p] = T(0);
+          mean[p] = T(0);
+#pragma unroll
+          for (int j = 0; j < DB; ++j) {
+            se[p] += a[p][j] * a[p][j] * hz.v[j];  // zero beyond D
+            mean[p] += a[p][j] * mz.v[j];
+          }
+        }
+        for (int off = 1; off < G; off <<= 1) {  // butterfly: all G lanes get the sums
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            se[p] += __shfl_xor_sync(0xffffffffu, se[p], off);
+            mean[p] += __shfl_xor_sync(0xffffffffu, mean[p], off);
+          }
+        }
+        ADF_PROBE_MARK(3);
+        // Per point: s2e, residual, log-normaliser; then the weights at the
+        // lane's shift, raised first if a point of this round exceeds it.
+        const auto scalars = [&](T se_, T mean_, T& rs, T& inv, T& ln) {
+          const T s2e = sn2 + se_;
+          const T resid = yk - mean_;
+          inv = T(1) / s2e;
+          rs = resid * inv;
+          ln = T(-0.5) * (resid * rs + Num<T>::log_(s2e) + T(LOG2PI));
+        };
+        // exp(ln - m) for a point that counts; a NaN poisons, -inf adds zero
+        const auto weight = [&](bool ok, T ln, T m) {
+          return !ok || ln == T(-INFINITY) ? T(0) : Num<T>::exp_(ln - m);
+        };
+        T wns[PB], wr[PB], wc[PB], al;
+        if (G >= PB) {
+          // lane p of the group does point p and hands its weights round
+          const int pm = g_lane & (PB - 1);
+          T se_m = se[0], mean_m = mean[0];
+#pragma unroll
+          for (int p = 1; p < PB; ++p)
+            if (pm == p) {
+              se_m = se[p];
+              mean_m = mean[p];
+            }
+          const bool ok = s0 + grp * PB + pm < S;
+          T rs, inv, ln;
+          scalars(se_m, mean_m, rs, inv, ln);
+          T mx = ok && ln == ln ? ln : T(-INFINITY);  // a NaN never wins
+#pragma unroll
+          for (int off = 1; off < PB; off <<= 1) {
+            const T o = __shfl_xor_sync(0xffffffffu, mx, off);
+            mx = o > mx ? o : mx;
+          }
+          const T m_new = mx > m_run ? mx : m_run;
+          al = shift_scale(m_run, m_new);
+          m_run = m_new;
+          T wv = T(0);
+          if (ok) wv = wn_w[grp * PB + pm];
+          const T wns_m = wv * weight(ok, ln, m_new);
+          const T wr_m = wns_m * rs, wc_m = wns_m * (rs * rs - inv);
+          const int first = lane & ~(G - 1);
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            wns[p] = __shfl_sync(0xffffffffu, wns_m, first + p);
+            wr[p] = __shfl_sync(0xffffffffu, wr_m, first + p);
+            wc[p] = __shfl_sync(0xffffffffu, wc_m, first + p);
+          }
+        } else {
+          // fewer lanes than points (D, N <= ADF_DB * G): every lane does all
+          T rs[PB], inv[PB], ln[PB], m_new = m_run;
+          bool ok[PB];
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            ok[p] = s0 + grp * PB + p < S;
+            scalars(se[p], mean[p], rs[p], inv[p], ln[p]);
+            if (ok[p] && ln[p] > m_new) m_new = ln[p];
+          }
+          al = shift_scale(m_run, m_new);
+          m_run = m_new;
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            T wv = T(0);
+            if (ok[p]) wv = wn_w[grp * PB + p];
+            wns[p] = wv * weight(ok[p], ln[p], m_new);
+            wr[p] = wns[p] * rs[p];
+            wc[p] = wns[p] * (rs[p] * rs[p] - inv[p]);
+          }
+        }
+        ADF_PROBE_MARK(4);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] *= al;
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          const int pt = grp * PB + p;
+          if (s0 + pt < S) {
+            acc[0] += wns[p];
+#pragma unroll
+            for (int j = 0; j < DB; ++j) {
+              acc[1 + j] += wr[p] * a[p][j];
+              acc[1 + DB + j] += wc[p] * (a[p][j] * a[p][j]);
+              const T x = d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
+              // the unit point's first two weighted moments; the channel
+              // thread scales them to G1, G2 (rg and 1 / s2_g factor out)
+              acc[1 + 2 * DB + j] += wns[p] * x;
+              acc[1 + 3 * DB + j] += wns[p] * (x * x);
+            }
+          }
+        }
+        ADF_PROBE_MARK(5);
+      }
+      // ---- 3. merge: groups of a warp, warps of a CTA, CTAs of a cluster --
+      {  // the warp's shift first, one rescale, then plain butterfly sums
+        T mw = m_run;
+        for (int off = G; off < 32; off <<= 1) {
+          const T o = __shfl_xor_sync(0xffffffffu, mw, off);
+          mw = o > mw ? o : mw;
+        }
+        const T sc = shift_scale(m_run, mw);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] *= sc;
+        for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+          for (int i = 0; i < NACC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+        }
+        m_run = mw;
+      }
+      if (grp == 0) {  // group 0 holds the warp's record
+        T* pr = part + w * L.rec;
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) pr[g_lane * NACC + i] = acc[i];
+        if (g_lane == 0) pr[mslot] = m_run;
+      }
+      __syncthreads();
+      if (R > 1) {
+        T* mine = cta_rec + (n_seen & 1) * L.rec;
+        const auto warp_rec = [&](int p) { return part + p * L.rec; };
+        for (int idx = tid; idx < mslot; idx += NT) {
+          const int one[1] = {idx};
+          T v[1];
+          const T mw = merge_partials<T, 1>(NW, warp_rec, mslot, one, v);
+          mine[idx] = v[0];
+          if (idx == 0) mine[mslot] = mw;
+        }
+        ADF_PROBE_MARK(6);
+        cluster.sync();
+        ADF_PROBE_MARK(7);
+        if (chan)
+          m_all = merge_partials<T, 3>(
+              R, [&](int p) { return cluster.map_shared_rank(mine, p); }, mslot, slots, tot);
+      } else {
+        ADF_PROBE_MARK(6);
+        if (chan)
+          m_all = merge_partials<T, 3>(
+              NW, [&](int p) { return part + p * L.rec; }, mslot, slots, tot);
+      }
+      ++n_seen;
+    }
+
+    // ---- 4. derivatives, damped site, measurement update -----------------
+    if (chan) {
+      T tt = T(0), tn = T(0), lZk = T(0);  // unobserved: zero sites, lZ = 0
+      if (observed) {
+        if (!Num<T>::finite(m_all)) m_all = T(0);
+        if (tid >= D) {
+          // G1 = sum w dmu, G2 = sum w (dmu^2 - 1 / s2_g) with dmu = rg * x
+          const T is2 = T(1) / HPH, rg = sd * is2;
+          tot[1] *= rg;
+          tot[2] = tot[2] * (rg * rg) - is2 * tot[0];
+        }
+        const T Z0 = clamp_min(tot[0], Num<T>::tiny());
+        const T lZ_raw = m_all + Num<T>::log_(Z0);
+        lZk = clamp_min(lZ_raw, log_floor);  // floor on the raw sum, not the shifted
+        const T Zi = Num<T>::exp_(lZ_raw - lZk) / Z0;
+        const T dl = Zi * tot[1];
+        const T d2 = Zi * tot[2] - dl * dl;
+        const T denom = T(1) + d2 * HPH;
+        // incoming sites are zero: (1 - damp) * 0 + damp * (...)
+        tt = clamp_min(damp * (-d2 / denom), T(0));
+        tn = damp * ((dl - fmu * d2) / denom);
+      }
+      site_update<T, BS>(tt, tn, fmu, HPH, PH, mp, Pp, m, P);
+      if (rank == 0) {
+        const size_t row = ((size_t)t * BF + b) * C + tid;
+        tt_out[row] = tt;
+        tn_out[row] = tn;
+        if (tid == 0) lZ[(size_t)t * BF + b] = lZk;
+#pragma unroll
+        for (int i = 0; i < BS; ++i) ms[row * BS + i] = m[i];
+        store_mat<T, BS>(Ps + row * BS * BS, P);
+      }
+    }
+    ADF_PROBE_MARK(8);
+  }
+  // No CTA may exit while another can still read its shared memory.
+  if (R > 1) cluster.sync();
+#ifdef NSGP_CLOCK_PROBE
+  if (probing) {
+    for (int i = 0; i < ADF_PROBE_PHASES; ++i) cyc[i] = cycv[i];
+    cyc[ADF_PROBE_PHASES] = n_seen;
+  }
+#endif
+}
+
+template <typename T, int BS>
+__device__ __forceinline__ void adf_sweep(
+    const T* __restrict__ y, const T* __restrict__ obs, const T* __restrict__ A,
+    const T* __restrict__ Q, const T* __restrict__ Pinf, const T* __restrict__ H,
+    const T* __restrict__ W, const T* __restrict__ xi, const T* __restrict__ wn,
+    const T* __restrict__ sn2, T damp, T log_floor, int n_steps, int BF, int D, int N, int S,
+    int R, int link_exp, int sq, T* __restrict__ ms, T* __restrict__ Ps, T* __restrict__ lZ,
+    T* __restrict__ tt, T* __restrict__ tn, long long* __restrict__ cyc) {
+  if (R > 1)
+    adf_sweep_pb<T, BS, ADF_PB_CLUSTER>(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor,
+                                        n_steps, BF, D, N, S, R, link_exp, sq, ms, Ps, lZ, tt,
+                                        tn, cyc);
+  else
+    adf_sweep_pb<T, BS, ADF_PB_ONE>(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor,
+                                    n_steps, BF, D, N, S, 1, link_exp, sq, ms, Ps, lZ, tt, tn,
+                                    cyc);
+}
+
+// Launch `kern` (K3 or K4) over BF files: BF clusters of R CTAs.  Returns 0,
+// a CUDA error, -2 for a width the mapping cannot take, -3 for a cluster that
+// cannot be resident.  Within the accepted widths the shared layout stays
+// under the block's 227 KB (the staged sigma points are dropped first).
+template <typename T, typename Kern>
+int launch_adf_sweep(Kern kern, const void* y, const void* obs, const void* A, const void* Q,
+                     const void* Pinf, const void* H, const void* W, const void* xi,
+                     const void* wn, const void* sn2, double damp, double log_floor,
+                     int n_steps, int BF, int D, int N, int S, int link_exp, int sq, void* ms,
+                     void* Ps, void* lZ, void* tt, void* tn, void* cyc, cudaStream_t st) {
+  if (D < 1 || N < 1 || S < 1 || BF < 1 || D > ADF_MAX_WIDTH || N > ADF_MAX_WIDTH ||
+      D + N > ADF_THREADS)
+    return -2;
+  const int R = adf_cluster_size(S);
+  const size_t bytes = (size_t)adf_layout(D, N, S, R, sizeof(T)).total * sizeof(T);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(BF * R));
+  cfg.blockDim = dim3(ADF_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (R > 1) {
+    int resident = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&resident, kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (resident < 1) return -3;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const T*)y, (const T*)obs, (const T*)A, (const T*)Q, (const T*)Pinf,
+      (const T*)H, (const T*)W, (const T*)xi, (const T*)wn, (const T*)sn2, (T)damp,
+      (T)log_floor, n_steps, BF, D, N, S, R, link_exp, sq, (T*)ms, (T*)Ps, (T*)lZ, (T*)tt,
+      (T*)tn, (long long*)cyc);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,26 +1,25 @@
-// Fused Kalman filter / RTS smoother / ADF kernels for Hopper (sm_90a).
+// Fused Kalman filter and RTS smoother kernels for Hopper (sm_90a).
 //
-// Hand-written CUDA counterparts of the three Pallas kernels on the GT-NMF
+// Hand-written CUDA counterparts of two Pallas kernels on the GT-NMF
 // Power-EP path (nsgp_tpu/ops/pallas_kalman.py):
 //
 //   fused_fwd_kernel  replaces pallas_kalman.py:_fwd_kernel  (K1)
 //   fused_bwd_kernel  replaces pallas_kalman.py:_bwd_kernel  (K2)
-//   fused_adf_kernel  replaces pallas_kalman.py:_adf_kernel  (K3)
+//
+// (K3 and K4, the ADF sweeps, are in fused_adf.cuh and fused_adf_mb.cuh.)
 //
 // Each is a sequential recursion over T with a tiny per-channel state
 // (bs + bs*bs <= 72 values, bs <= 8): one thread carries one channel's m and P
 // in registers for the whole time loop, and the loop over T runs inside the
 // kernel, so a pass is one launch.  What bounds them on this card is the
-// latency of the dependent per-step chain (predict -> marginals -> update,
-// plus the block-wide sigma-point reductions in K3), not bytes or FLOPs: a
-// pass uses one SM of 132.  Filling the card (several signals per launch) is
-// the batched kernel's work.  Loads of the next step's inputs are issued one
-// step ahead so their latency overlaps the current step's arithmetic.
+// latency of the dependent per-step chain (predict -> marginals -> update),
+// not bytes or FLOPs: a pass uses ceil(C / 32) SMs of 132.  Loads of the next
+// step's inputs are issued one step ahead so their latency overlaps the
+// current step's arithmetic.
 //
 // Layouts (C-major, what inference/ep.py consumes; no padding of T):
-//   sites, lZ    (T, C) / (T,)          A, Q, Pinf (C, bs, bs)   H, pad (C, bs)
+//   sites        (T, C)                 A, Q, Pinf (C, bs, bs)   H, pad (C, bs)
 //   ms           (T, C, bs)             Ps         (T, C, bs, bs)
-//   W            (D, N)                 xi (S, N), wn (S,)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC.  Never with --use_fast_math: ~4e-3 relative error
@@ -207,188 +206,6 @@ __global__ void fused_bwd_kernel(const T* __restrict__ ms, const T* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// K3: ADF forward sweep (EP sweep 1) with in-kernel cubature moment matching
-// ---------------------------------------------------------------------------
-//
-// One CTA of ADF_THREADS threads per signal.  Per step:
-//   1. channel threads (tid < C) predict and publish fmu, HPH (and the
-//      modulators' sd) to shared;
-//   2. phase A: threads stride over the S sigma points, evaluate xn, link,
-//      a = W link (sqrt for 'sq'), s2e, the residual and log_norm, keeping
-//      xn, link and a in the thread's shared columns; a block max-reduce
-//      gives the shift lmax;
-//   3. phase B: per sigma point the K = 1 + 2D + 2N shifted moment terms
-//      (Z, A1[D], A2[D], G1[N], G2[N]) go to shared slots; thread k then sums
-//      row k over the sigma points in a fixed order (four interleaved chains,
-//      no atomics: two runs give the same bits).  With S > ADF_THREADS the
-//      sigma points are taken in tiles and phase B re-evaluates each tile;
-//   4. channel threads form dlZ, d2lZ with the raw-scale Z floor, the damped
-//      clamped site, and the measurement update.
-
-template <typename T, int BS>
-__global__ void __launch_bounds__(ADF_THREADS)
-fused_adf_kernel(const T* __restrict__ y, const T* __restrict__ obs,
-                 const T* __restrict__ A_, const T* __restrict__ Q_,
-                 const T* __restrict__ Pinf_, const T* __restrict__ H_,
-                 const T* __restrict__ W, const T* __restrict__ xi,
-                 const T* __restrict__ wn, const T* __restrict__ sn2_,
-                 T damp, T log_floor, int n_steps, int D, int N, int S, int link_exp_i,
-                 int sq_i, T* __restrict__ ms, T* __restrict__ Ps, T* __restrict__ lZ,
-                 T* __restrict__ tt_out, T* __restrict__ tn_out) {
-  constexpr int NT = ADF_THREADS, PITCH = ADF_PITCH;
-  constexpr int NW = NT / 32;
-  const int tid = threadIdx.x;
-  const int C = D + N;
-  const int K = 1 + 2 * D + 2 * N;
-  const bool link_exp = link_exp_i != 0, sq = sq_i != 0;
-  const bool one_tile = S <= NT;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* fmu_sh = reinterpret_cast<T*>(smem_raw);
-  T* hph_sh = fmu_sh + C;
-  T* sd_sh = hph_sh + C;
-  T* wmax = sd_sh + N;
-  T* tot = wmax + NW;
-  T* terms = tot + K;                     // terms[k * PITCH + tid]
-  T* xn_col = terms + (size_t)K * PITCH + tid;  // xn_col[n * NT]
-  T* lk_col = xn_col + (size_t)N * NT;          // lk_col[n * NT]
-  T* a_col = lk_col + (size_t)N * NT;           // a_col[d * NT]
-  T* W_sh = a_col - tid + (size_t)D * NT;
-  T* slot = terms + tid;
-
-  for (int i = tid; i < D * N; i += NT) W_sh[i] = W[i];
-  const T sn2 = sn2_[0];
-
-  // Channel state (threads tid < C only).
-  const bool chan = tid < C;
-  T A[BS][BS], Q[BS][BS], P[BS][BS], H[BS], m[BS];
-  if (chan) {
-    load_mat<T, BS>(A, A_ + tid * BS * BS);
-    load_mat<T, BS>(Q, Q_ + tid * BS * BS);
-    load_mat<T, BS>(P, Pinf_ + tid * BS * BS);
-#pragma unroll
-    for (int i = 0; i < BS; ++i) {
-      H[i] = H_[tid * BS + i];
-      m[i] = T(0);
-    }
-  }
-  T y_next = y[0], obs_next = obs[0];
-
-  for (int t = 0; t < n_steps; ++t) {
-    const T yk = y_next;
-    const bool observed = obs_next > T(0);
-    if (t + 1 < n_steps) {
-      y_next = y[t + 1];
-      obs_next = obs[t + 1];
-    }
-
-    // ---- 1. predict and publish the observable marginals ----------------
-    T mp[BS], Pp[BS][BS], PH[BS], fmu = T(0), HPH = T(0);
-    if (chan) {
-      T AP[BS][BS];
-      predict<T, BS>(A, Q, m, P, mp, AP, Pp);
-      observe<T, BS>(H, mp, Pp, fmu, PH, HPH);
-      fmu_sh[tid] = fmu;
-      hph_sh[tid] = HPH;
-      if (tid >= D) sd_sh[tid - D] = Num<T>::sqrt_(clamp_min(HPH, T(0)));
-    }
-    __syncthreads();
-
-    // ---- 2. phase A: log-normalisers and their max ----------------------
-    T s2e = T(0), resid = T(0), ln = T(0);
-    T lmax = -INFINITY;
-    for (int s0 = 0; s0 < S; s0 += NT) {
-      const int s = s0 + tid;
-      if (s < S) {
-        eval_sigma<T>(s, xi, fmu_sh, hph_sh, sd_sh, W_sh, xn_col, lk_col, a_col, yk, sn2, D,
-                      N, link_exp, sq, s2e, resid, ln);
-        lmax = ln > lmax ? ln : lmax;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const T o = __shfl_xor_sync(0xffffffffu, lmax, off);
-      lmax = o > lmax ? o : lmax;
-    }
-    if ((tid & 31) == 0) wmax[tid >> 5] = lmax;
-    __syncthreads();
-    lmax = wmax[0];
-#pragma unroll
-    for (int w = 1; w < NW; ++w) lmax = wmax[w] > lmax ? wmax[w] : lmax;
-    if (!Num<T>::finite(lmax)) lmax = T(0);
-
-    // ---- 3. phase B: shifted moment sums in a fixed order ----------------
-    for (int s0 = 0; s0 < S; s0 += NT) {
-      const int s = s0 + tid;
-      if (s < S) {
-        if (!one_tile)
-          eval_sigma<T>(s, xi, fmu_sh, hph_sh, sd_sh, W_sh, xn_col, lk_col, a_col, yk, sn2,
-                        D, N, link_exp, sq, s2e, resid, ln);
-        const T wns = wn[s] * Num<T>::exp_(ln - lmax);
-        const T rs = resid / s2e;
-        const T c2 = rs * rs - T(1) / s2e;
-        slot[0] = wns;
-        for (int d = 0; d < D; ++d) {
-          const T ad = a_col[d * NT];
-          slot[(1 + d) * PITCH] = wns * rs * ad;
-          slot[(1 + D + d) * PITCH] = wns * (ad * ad) * c2;
-        }
-        for (int n = 0; n < N; ++n) {
-          const T mu_g = fmu_sh[D + n], s2_g = hph_sh[D + n];
-          const T dmu = (xn_col[n * NT] - mu_g) / s2_g;
-          slot[(1 + 2 * D + n) * PITCH] = wns * dmu;
-          slot[(1 + 2 * D + N + n) * PITCH] = wns * (dmu * dmu - T(1) / s2_g);
-        }
-      }
-      __syncthreads();
-      const int ns = min(S - s0, NT);  // sigma points in this tile
-      for (int k = tid; k < K; k += NT) {
-        const T* row = terms + (size_t)k * PITCH;
-        T acc0 = T(0), acc1 = T(0), acc2 = T(0), acc3 = T(0);
-        int j = 0;
-        for (; j + 4 <= ns; j += 4) {
-          acc0 += row[j];
-          acc1 += row[j + 1];
-          acc2 += row[j + 2];
-          acc3 += row[j + 3];
-        }
-        for (; j < ns; ++j) acc0 += row[j];
-        tot[k] = (s0 == 0 ? T(0) : tot[k]) + ((acc0 + acc1) + (acc2 + acc3));
-      }
-      __syncthreads();
-    }
-
-    // ---- 4. derivatives, damped site, measurement update -----------------
-    if (chan) {
-      const T Z0 = clamp_min(tot[0], Num<T>::tiny());
-      const T lZ_raw = lmax + Num<T>::log_(Z0);
-      const T lZk = clamp_min(lZ_raw, log_floor);
-      const T Zi = Num<T>::exp_(lZ_raw - lZk) / Z0;
-      const int k1 = tid < D ? 1 + tid : 1 + 2 * D + (tid - D);
-      const int k2 = tid < D ? 1 + D + tid : 1 + 2 * D + N + (tid - D);
-      const T dl = Zi * tot[k1];
-      const T d2 = Zi * tot[k2] - dl * dl;
-      const T denom = T(1) + d2 * HPH;
-      // incoming sites are zero: (1 - damp) * 0 + damp * (...)
-      T tt = clamp_min(damp * (-d2 / denom), T(0));
-      T tn = damp * ((dl - fmu * d2) / denom);
-      if (!observed) {  // unobserved: zero sites, lZ = 0
-        tt = T(0);
-        tn = T(0);
-      }
-      const size_t row = (size_t)t * C + tid;
-      tt_out[row] = tt;
-      tn_out[row] = tn;
-      if (tid == 0) lZ[t] = observed ? lZk : T(0);
-      site_update<T, BS>(tt, tn, fmu, HPH, PH, mp, Pp, m, P);
-#pragma unroll
-      for (int i = 0; i < BS; ++i) ms[row * BS + i] = m[i];
-      store_mat<T, BS>(Ps + row * BS * BS, P);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -413,33 +230,10 @@ int launch_bwd(const void* ms, const void* Ps, const void* A, const void* Q,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BS>
-int launch_adf(const void* y, const void* obs, const void* A, const void* Q,
-               const void* Pinf, const void* H, const void* W, const void* xi,
-               const void* wn, const void* sn2, double damp, double log_floor, int n_steps,
-               int D, int N, int S, int link_exp, int sq, void* ms, void* Ps, void* lZ,
-               void* tt, void* tn, cudaStream_t st) {
-  const size_t bytes = adf_smem_elems(D + N, D, N) * sizeof(T);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_adf_kernel<T, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_adf_kernel<T, BS><<<1, ADF_THREADS, bytes, st>>>(
-      (const T*)y, (const T*)obs, (const T*)A, (const T*)Q, (const T*)Pinf, (const T*)H,
-      (const T*)W, (const T*)xi, (const T*)wn, (const T*)sn2, (T)damp, (T)log_floor,
-      n_steps, D, N, S, link_exp, sq, (T*)ms, (T*)Ps, (T*)lZ, (T*)tt, (T*)tn);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 
 extern "C" {
-
-long long nsgp_adf_smem_bytes(int is_f64, int D, int N) {
-  return (long long)(adf_smem_elems(D + N, D, N) * (is_f64 ? sizeof(double) : sizeof(float)));
-}
 
 int nsgp_fused_fwd(int is_f64, int bs, const void* ttau, const void* tnu, const void* A,
                    const void* Q, const void* Pinf, const void* H, void* ms, void* Ps,
@@ -453,16 +247,6 @@ int nsgp_fused_bwd(int is_f64, int bs, const void* ms, const void* Ps, const voi
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   NSGP_DISPATCH(launch_bwd, ms, Ps, A, Q, pad, sm, sP, n_steps, C, st)
-}
-
-int nsgp_fused_adf(int is_f64, int bs, const void* y, const void* obs, const void* A,
-                   const void* Q, const void* Pinf, const void* H, const void* W,
-                   const void* xi, const void* wn, const void* sn2, double damp,
-                   double log_floor, int n_steps, int D, int N, int S, int link_exp,
-                   int sq, void* ms, void* Ps, void* lZ, void* tt, void* tn, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  NSGP_DISPATCH(launch_adf, y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor, n_steps,
-                D, N, S, link_exp, sq, ms, Ps, lZ, tt, tn, st)
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Shared pieces of the fused Kalman / ADF kernels (sm_90a): number traits,
-// the per-channel block algebra, the link functions and the evaluation of
-// one sigma point.  Included by fused_kalman.cu (K1-K3) and fused_adf_mb.cu
-// (K4); everything lives in an anonymous namespace, so each translation
-// unit gets its own copy and the objects link into one library.
+// the per-channel block algebra and the link functions.  Included by
+// fused_kalman.cu (K1, K2) and, through adf_step.cuh, by fused_adf.cuh (K3)
+// and fused_adf_mb.cuh (K4); everything lives in an anonymous namespace, so
+// each translation unit gets its own copy and the objects link into one
+// library.
 
 #pragma once
 
@@ -15,6 +16,12 @@ namespace {
 template <typename T> struct Num;
 template <> struct Num<float> {
   static __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+  // sqrt of a positive normal number without sqrtf's special-case branch:
+  // rsqrt and one Newton step on the residual, within an ulp of sqrtf.
+  static __device__ __forceinline__ float sqrt_pos(float x) {
+    const float r = rsqrtf(x), a = x * r;
+    return fmaf(fmaf(-a, a, x), 0.5f * r, a);
+  }
   static __device__ __forceinline__ float exp_(float x) { return expf(x); }
   static __device__ __forceinline__ float log_(float x) { return logf(x); }
   static __device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
@@ -24,6 +31,7 @@ template <> struct Num<float> {
 };
 template <> struct Num<double> {
   static __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+  static __device__ __forceinline__ double sqrt_pos(double x) { return sqrt(x); }
   static __device__ __forceinline__ double exp_(double x) { return exp(x); }
   static __device__ __forceinline__ double log_(double x) { return log(x); }
   static __device__ __forceinline__ double log1p_(double x) { return log1p(x); }
@@ -126,25 +134,10 @@ __device__ __forceinline__ void site_update(T tt, T tn, T fmu, T HPH, const T (&
 }
 
 // ---------------------------------------------------------------------------
-// ADF pieces shared by the single-signal kernel (K3) and the batched one (K4)
+// The link function of the ADF kernels (K3, K4; the step is in adf_step.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int ADF_THREADS = 128;
-constexpr int ADF_PITCH = ADF_THREADS + 1;  // row pitch of the moment terms:
-// odd, so threads summing different rows hit different banks
 constexpr double LOG2PI = 1.8378770664093453;
-
-// Shared layout, in elements of T.
-__host__ __device__ inline size_t adf_smem_elems(int C, int D, int N) {
-  const int K = 1 + 2 * D + 2 * N;
-  return (size_t)2 * C                  // fmu, HPH
-         + N                            // modulator sd = sqrt(max(HPH, 0))
-         + ADF_THREADS / 32             // per-warp max
-         + K                            // tile totals
-         + (size_t)K * ADF_PITCH        // per-thread moment terms
-         + (size_t)(2 * N + D) * ADF_THREADS  // per-thread xn, link, a columns
-         + (size_t)D * N;               // W
-}
 
 template <typename T>
 __device__ __forceinline__ T link_fn(T x, bool link_exp) {
@@ -153,39 +146,21 @@ __device__ __forceinline__ T link_fn(T x, bool link_exp) {
   return (x > T(0) ? x : T(0)) + Num<T>::log1p_(Num<T>::exp_(-Num<T>::abs_(x)));
 }
 
-// Evaluate sigma point s: its modulator inputs xn, link values and
-// amplitudes a go to this thread's columns of shared memory (col[i * NT]);
-// returns s2e, resid, log_norm.
-template <typename T>
-__device__ __forceinline__ void eval_sigma(int s, const T* __restrict__ xi,
-                                           const T* __restrict__ fmu_sh,
-                                           const T* __restrict__ hph_sh,
-                                           const T* __restrict__ sd_sh,
-                                           const T* __restrict__ W_sh,
-                                           T* __restrict__ xn_col, T* __restrict__ lk_col,
-                                           T* __restrict__ a_col, T yk, T sn2, int D, int N,
-                                           bool link_exp, bool sq, T& s2e, T& resid, T& ln) {
-  constexpr int NT = ADF_THREADS;
-  for (int n = 0; n < N; ++n) {
-    const T xn = fmu_sh[D + n] + sd_sh[n] * xi[(size_t)s * N + n];
-    xn_col[n * NT] = xn;
-    lk_col[n * NT] = link_fn(xn, link_exp);
-  }
-  T se = T(0), mean = T(0);
-  for (int d = 0; d < D; ++d) {
-    T ad = T(0);
-    for (int n = 0; n < N; ++n) ad += lk_col[n * NT] * W_sh[d * N + n];
-    if (sq) ad = Num<T>::sqrt_(clamp_min(ad, T(1e-12)));
-    a_col[d * NT] = ad;
-    se += ad * ad * hph_sh[d];
-    mean += ad * fmu_sh[d];
-  }
-  s2e = sn2 + se;
-  resid = yk - mean;
-  ln = T(-0.5) * (resid * resid / s2e + Num<T>::log_(s2e) + T(LOG2PI));
-}
-
 }  // namespace
+
+// Dispatch on bs (1..8) for one dtype T.
+#define NSGP_DISPATCH_BS(FN, T, ...)                 \
+  switch (bs) {                                      \
+    case 1: return FN<T, 1>(__VA_ARGS__);            \
+    case 2: return FN<T, 2>(__VA_ARGS__);            \
+    case 3: return FN<T, 3>(__VA_ARGS__);            \
+    case 4: return FN<T, 4>(__VA_ARGS__);            \
+    case 5: return FN<T, 5>(__VA_ARGS__);            \
+    case 6: return FN<T, 6>(__VA_ARGS__);            \
+    case 7: return FN<T, 7>(__VA_ARGS__);            \
+    case 8: return FN<T, 8>(__VA_ARGS__);            \
+    default: return -1;                              \
+  }
 
 // Dispatch on (dtype: 0 = float32, 1 = float64) x (bs: 1..8).
 #define NSGP_DISPATCH(FN, ...)                                   \

@@ -2,13 +2,14 @@
 
 Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Four kernels, each a whole
 sequential pass over T in one launch (``csrc/fused_kalman.cu``,
-``csrc/fused_adf_mb.cu``):
+``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``; K3 and K4 share their step,
+``csrc/adf_step.cuh``):
 
     fused_fwd     (K1)  forward filter with fixed sites    <- _fwd_kernel
     fused_bwd     (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
     fused_adf     (K3)  EP sweep 1: filter + in-step ADF   <- _adf_kernel
-    fused_adf_mb  (K4)  K3 over BF files, one CTA a file,  <- _adf_kernel_mb
-                        sigma points streamed in chunks
+    fused_adf_mb  (K4)  K3 over BF files, a cluster of     <- _adf_kernel_mb
+                        CTAs a file, sigma points streamed
 
 Each wrapper does exactly one of two things: on CPU tensors it runs its
 plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
@@ -37,9 +38,13 @@ from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import LINKS, MomentParams, sigma_points
 from nsgp_tpu_torch.ops.ssm import BlockSSM
 
-MAX_BLOCK = 8  # block sizes instantiated in csrc/fused_kalman.cu
+MAX_BLOCK = 8  # block sizes instantiated in csrc/*.cu
 _LOG2PI = math.log(2.0 * math.pi)
-_SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
+_LAUNCH_CODES = {  # what csrc/adf_step.cuh:launch_adf_sweep returns besides CUDA errors
+    -1: "unsupported block size or dtype",
+    -2: "a width the thread mapping cannot take",
+    -3: "the thread-block cluster cannot be resident on this card",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +315,47 @@ def fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, var
     return ms, Ps, lZ, tts, tns
 
 
+def shifted_partial(log_norm, wn, terms):
+    """What one lane (or any partition of the sigma points) holds after its
+    points, as ``csrc/adf_step.cuh`` keeps it: the partition's own shift and
+    its K totals at that shift.
+
+    log_norm, wn (P,), terms (P, K) -> (shift (), totals (K,)).  The shift is
+    the largest log-normaliser under the kernel's plain ``>`` (a NaN never
+    wins: it poisons the totals instead); an empty partition has shift -inf
+    and zero totals; a point at -inf adds exactly zero.
+    """
+    neg_inf = torch.full((), -math.inf, dtype=terms.dtype, device=terms.device)
+    if log_norm.numel() == 0:
+        return neg_inf, torch.zeros(terms.shape[1:], dtype=terms.dtype, device=terms.device)
+    shift = torch.where(torch.isnan(log_norm), neg_inf, log_norm).amax()
+    e = torch.where(log_norm == -math.inf, torch.zeros_like(log_norm),
+                    torch.exp(log_norm - shift))
+    return shift, ((wn * e)[:, None] * terms).sum(0)
+
+
+def merge_shifted_partials(shifts, totals):
+    """The kernels' merge of partial totals kept under different shifts
+    (``merge_partials`` in ``csrc/adf_step.cuh``): shifts (P,), totals (P, K)
+    -> (shift (), totals (K,)) with
+
+        m = max_p shifts[p],   out = sum_p totals[p] * scale_p   (in order p),
+        scale_p = 0 where shifts[p] = -inf (an empty partial, whatever m is),
+                  exp(shifts[p] - m) otherwise.
+
+    Totals are signed (cubature weights may be negative): they are rescaled,
+    never logged.  The returned shift is m, or 0 where m is not finite (the
+    rule applied once, to the merged shift); every consumer forms ratios
+    ``out[k] / out[0]`` and ``shift + log(out[0])``, in which m cancels.
+    """
+    m = shifts.amax()
+    scale = torch.where(shifts == -math.inf, torch.zeros_like(shifts), torch.exp(shifts - m))
+    out = torch.zeros_like(totals[0])
+    for p in range(totals.shape[0]):
+        out = out + totals[p] * scale[p]
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m)), out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -342,7 +388,8 @@ def _launch(name: str, fn, *args, device) -> None:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (code {rc})")
+        why = _LAUNCH_CODES.get(rc, "CUDA error")
+        raise RuntimeError(f"{name}: kernel launch failed (code {rc}: {why})")
 
 
 def _check_shapes(name: str, bs: int, T: int, **expected) -> None:
@@ -398,6 +445,29 @@ def fused_bwd(ms, Ps, A, Q, pad):
     return sm, sP
 
 
+def _check_adf(name: str, lib, C: int, D: int, N: int, S: int, link, variant):
+    """What both ADF kernels refuse: an unknown link, a channel count that
+    is not D + N, more subbands or modulators than a warp's lanes can take
+    (within that width a channel a thread and the shared layout always fit)."""
+    if link not in LINKS or variant not in ("amp", "sq"):
+        raise ValueError(f"unsupported link/variant {link!r}/{variant!r}")
+    if C != D + N:
+        raise ValueError(f"{name} needs C = D + N channels, got C={C}, D={D}, N={N}")
+    width = lib.nsgp_adf_max_width()
+    if not (1 <= D <= width and 1 <= N <= width and S >= 1):
+        raise ValueError(f"{name} takes at most {width} subbands and {width} modulators "
+                         f"and needs a sigma point: D={D}, N={N}, S={S}")
+
+
+def adf_launch_shape(S: int) -> dict:
+    """How the ADF kernels launch for S sigma points: threads a CTA and CTAs
+    a file (the cluster size).  Needs the built library."""
+    from nsgp_tpu_torch.ops import _build
+
+    lib = _build.library()
+    return {"threads": lib.nsgp_adf_threads(), "cluster": lib.nsgp_adf_cluster(S)}
+
+
 def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_floor):
     """K3: ADF forward sweep with in-step cubature moments (see
     ``fused_adf_plain``)."""
@@ -412,15 +482,11 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     S = wn.shape[0]
     mat = (C, bs, bs)
     _check_shapes("fused_adf", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
-                  Pinf=(Pinf, mat), xi=(xi, (S, N)), sn2=(sn2.reshape(-1), (1,)))
-    if link not in LINKS or variant not in ("amp", "sq"):
-        raise ValueError(f"unsupported link/variant {link!r}/{variant!r}")
+                  Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
+                  wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)))
     lib = _build.library()
     is_f64 = int(A.dtype == torch.float64)
-    if C != D + N:
-        raise ValueError(f"fused_adf needs C = D + N channels, got C={C}, D={D}, N={N}")
-    if lib.nsgp_adf_smem_bytes(is_f64, D, N) > _SMEM_LIMIT:
-        raise ValueError(f"fused_adf: D={D}, N={N} exceeds the kernel's shared layout")
+    _check_adf("fused_adf", lib, C, D, N, S, link, variant)
     args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1))]
     dt_, dev = A.dtype, A.device
     ms = torch.empty((T, C, bs), dtype=dt_, device=dev)
@@ -429,7 +495,8 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     tt = torch.empty((T, C), dtype=dt_, device=dev)
     tn = torch.empty((T, C), dtype=dt_, device=dev)
     log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    _launch("fused_adf", lib.nsgp_fused_adf, is_f64, bs, *map(_ptr, args),
+    _launch("fused_adf", lib.nsgp_fused_adf_f64 if is_f64 else lib.nsgp_fused_adf_f32, bs,
+            *map(_ptr, args),
             float(damp), log_floor, T, D, N, S, int(link == "exp"), int(variant == "sq"),
             _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), device=dev)
     fused_adf.launches += 1
@@ -437,11 +504,15 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
 
 
 def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_floor,
-                 s_chunk=0):
-    """K4: ADF forward sweep over BF files in one launch, a CTA a file (see
-    ``fused_adf_mb_plain``).  ``s_chunk`` > 0 streams the sigma points with
-    the online rescale; the kernel's chunk is then its thread count whatever
-    the value (see ``csrc/fused_adf_mb.cu``).  0 takes all S under one shift."""
+                 s_chunk=0, _lib=None, _cycles=None):
+    """K4: ADF forward sweep over BF files in one launch, a cluster of CTAs a
+    file (see ``fused_adf_mb_plain``).  ``s_chunk`` keeps its meaning for the
+    plain version (0 = one shift over all S, > 0 = streamed).  The kernel
+    evaluates each point once in either mode: every lane keeps its totals
+    under its own running shift and the partials are merged once per step
+    (``merge_shifted_partials``), so on the card the value changes nothing.
+    ``_lib`` / ``_cycles`` are for ``tools/probe_adf_cycles.py``: a library
+    built with the clock probe and the six int64 it fills."""
     if _on_cpu(y, obs, A, Q, Pinf, H, W, xi, wn, sn2):
         return fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp=damp,
                                   link=link, variant=variant, z_floor=z_floor,
@@ -455,20 +526,12 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
     mat = (BF, C, bs, bs)
     _check_shapes("fused_adf_mb", bs, T, obs=(obs, (T, BF)), A=(A, mat), Q=(Q, mat),
                   Pinf=(Pinf, mat), H=(H, (BF, C, bs)), W=(W, (BF, D, N)), xi=(xi, (S, N)),
-                  sn2=(sn2, (BF,)))
-    if link not in LINKS or variant not in ("amp", "sq"):
-        raise ValueError(f"unsupported link/variant {link!r}/{variant!r}")
+                  wn=(wn, (S,)), sn2=(sn2, (BF,)))
     if BF < 1 or s_chunk < 0:
         raise ValueError(f"fused_adf_mb needs BF >= 1 and s_chunk >= 0, got {BF}, {s_chunk}")
-    lib = _build.library()
+    lib = _lib or _build.library()
     is_f64 = int(A.dtype == torch.float64)
-    if C != D + N:
-        raise ValueError(f"fused_adf_mb needs C = D + N channels, got C={C}, D={D}, N={N}")
-    if C > lib.nsgp_adf_threads():
-        raise ValueError(f"fused_adf_mb carries one channel a thread: C={C} exceeds "
-                         f"{lib.nsgp_adf_threads()}")
-    if lib.nsgp_adf_smem_bytes(is_f64, D, N) > _SMEM_LIMIT:
-        raise ValueError(f"fused_adf_mb: D={D}, N={N} exceeds the kernel's shared layout")
+    _check_adf("fused_adf_mb", lib, C, D, N, S, link, variant)
     args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2)]
     dt_, dev = A.dtype, A.device
     ms = torch.empty((T, BF, C, bs), dtype=dt_, device=dev)
@@ -477,9 +540,11 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
     tt = torch.empty((T, BF, C), dtype=dt_, device=dev)
     tn = torch.empty((T, BF, C), dtype=dt_, device=dev)
     log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    _launch("fused_adf_mb", lib.nsgp_fused_adf_mb, is_f64, bs, *map(_ptr, args),
-            float(damp), log_floor, T, BF, D, N, S, int(s_chunk > 0), int(link == "exp"),
-            int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn),
+    cycles = ctypes.c_void_p(None) if _cycles is None else _ptr(_cycles)
+    _launch("fused_adf_mb", lib.nsgp_fused_adf_mb_f64 if is_f64 else lib.nsgp_fused_adf_mb_f32,
+            bs, *map(_ptr, args),
+            float(damp), log_floor, T, BF, D, N, S, int(link == "exp"),
+            int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), cycles,
             device=dev)
     fused_adf_mb.launches += 1
     return ms, Ps, lZ, tt, tn

@@ -8,11 +8,13 @@ repository's conftest, which imports it, is left out):
 
 Every block size class the kernels instantiate is reached through a kernel
 pair (bs 2, 3, 4, 6, 8), with both links and variants, a NaN gap, and a
-sigma-point count above one thread tile (N=4: 193 ut9 points > 128).  The
-batched ADF kernel (K4) is held against its plain version at batch width
+sigma-point count above one round of the CTA's lanes (N=4: 193 ut9 points).
+The batched ADF kernel (K4) is held against its plain version at batch width
 (several files, masks that differ) and at mixture width (D=48, N=9, 3973
-sigma points, streamed and in one chunk), with more moment rows than threads
-(K = 129 > 128), and K1/K2 at the batched paths' channel counts (190, 57).
+sigma points, a cluster of eight CTAs a file, also with three files), with
+K = 129 moment totals, with sigma-point counts just below and above the
+cluster threshold and not a multiple of any tile, and K1/K2 at the batched
+paths' channel counts (190, 57).  K3 runs 130 channels (D=126, N=4).
 Tolerances relative to the reference's max |value|: 1e-9 in float64 (the
 two differ in summation order and FMA contraction only), 1e-4 in float32
 at these short lengths.
@@ -164,11 +166,12 @@ def _adf_mb_pair(model, pB, yB, maskB, s_chunk):
     (5, 3, 2, "exp", "sq", "exp", "matern52", 7),
     (3, 4, 4, "softplus", "sq", "exp", "matern32", 64),  # 193 points: two tiles, streamed
     (3, 4, 4, "softplus", "sq", "exp", "matern32", 0),  # ... and under one shift
-    (2, 60, 4, "softplus", "sq", "exp", "exp", 0),  # K = 129 moment rows > 128 threads
+    (2, 60, 4, "softplus", "sq", "exp", "exp", 0),  # K = 129 moment totals
     (1, 48, 9, "softplus", "sq", "exp", "matern52", 256),  # mixture width, 3973 points
+    (3, 48, 9, "softplus", "sq", "exp", "matern52", 256),  # ... three clusters of eight CTAs
 ])
 def test_adf_mb_kernel_matches_plain(cuda, BF, D, N, link, variant, k1, k2, s_chunk, dtype):
-    steps = 24 if N == 9 else T
+    steps = (128 if BF == 3 else 24) if N == 9 else T
     model, pB, yB, maskB = _files(BF, D, N, dtype, cuda, link, variant, k1, k2, steps)
     fk.reset_launches()
     got, ref = _adf_mb_pair(model, pB, yB, maskB, s_chunk)
@@ -210,16 +213,125 @@ def test_fwd_bwd_kernels_at_batched_channel_counts(cuda, C_files):
                 fk.fused_bwd_plain(*ref, flat.A, flat.Q, pad)) <= 1e-9
 
 
+def _random_rule(S, N, dtype, dev, seed=0):
+    """S unit sigma points with signed weights that sum to one (a stand-in
+    for a cubature rule of any size)."""
+    rng = np.random.default_rng(seed)
+    wn = np.abs(rng.normal(size=S)) + 0.2
+    wn[::7] *= -0.25
+    return (torch.tensor(wn / wn.sum(), dtype=dtype, device=dev),
+            torch.tensor(rng.normal(size=(S, N)), dtype=dtype, device=dev))
+
+
+def _adf_mb_rule_pair(model, pB, yB, maskB, wn, xi, z_floor=None):
+    ssmB = model.build_ssm_batch(pB)
+    mp = model.moment_params()
+    dt_ = ssmB.A.dtype
+    args = (yB, maskB.to(dt_), ssmB.A, ssmB.Q, ssmB.Pinf, ssmB.H, pB.W, xi, wn, pB.lik)
+    kw = dict(damp=0.5, link=mp.link, variant=mp.variant,
+              z_floor=mp.z_floor if z_floor is None else z_floor)
+    return fk.fused_adf_mb(*args, **kw), fk.fused_adf_mb_plain(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("S", [7, 63, 512, 513, 1025, 4097, 40001])
+def test_adf_mb_kernel_any_number_of_sigma_points(cuda, S, dtype):
+    """One CTA up to 512 points, a cluster above (2 at 513, 3 at 1025, 8 at
+    4097); none of the counts but 512 is a multiple of a round.  At 40 001
+    points in float64 a CTA's share no longer fits in shared memory and is
+    read from global memory."""
+    from nsgp_tpu_torch.ops import _build
+
+    assert _build.library().nsgp_adf_cluster(S) == min(8, -(-S // 512))
+    model, pB, yB, maskB = _files(2, 5, 3, dtype, cuda, steps=32)
+    wn, xi = _random_rule(S, 3, dtype, cuda)
+    got, ref = _adf_mb_rule_pair(model, pB, yB, maskB, wn, xi)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel(got, ref) <= TOL[dtype]
+    again, _ = _adf_mb_rule_pair(model, pB, yB, maskB, wn, xi)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adf_mb_kernel_unstaged_sigma_points_at_mixture_width(cuda, dtype):
+    """D=48, N=9 (sixteen lanes a point) with 20 011 points: in float64 the
+    CTA's 2 560 rows of ten values exceed the staging budget."""
+    model, pB, yB, maskB = _files(2, 48, 9, dtype, cuda, steps=8)
+    wn, xi = _random_rule(20011, 9, dtype, cuda)
+    got, ref = _adf_mb_rule_pair(model, pB, yB, maskB, wn, xi)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_adf_mb_deep_log_normalisers_stay_off_the_floor(cuda):
+    """A residual of many standard deviations puts every log-normaliser
+    far below log(FLT_MIN) = -87: lanes, warps and CTAs with no point must
+    merge at weight zero, not at shift 0, or every total underflows and Z
+    falls to FLT_MIN.  Without a Z floor (z_floor = 0) lZ shows it."""
+    model, pB, yB, maskB = _files(1, 5, 3, torch.float32, cuda, steps=8)
+    yB = yB + 25.0  # lZ = -113; much larger outliers make the plain sites overflow too
+    maskB[1:] = False  # one such sample; the filter then runs on unobserved
+    wn, xi = _random_rule(600, 3, torch.float32, cuda)  # two CTAs, ragged rounds
+    got, ref = _adf_mb_rule_pair(model, pB, yB, maskB, wn.abs() / wn.abs().sum(), xi,
+                                 z_floor=0.0)
+    got, ref = [g[:1] for g in got], [r[:1] for r in ref]  # the step of that sample
+    assert float(ref[2][0]) < -100.0
+    assert [bool(torch.isfinite(r).all()) for r in ref] == [True] * 5
+    assert [bool(torch.isfinite(g).all()) for g in got] == [True] * 5
+    assert abs(float(got[2][0]) - float(ref[2][0])) <= 1e-4 * abs(float(ref[2][0]))
+    assert _rel(got, ref) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adf_kernel_runs_130_channels(cuda, dtype):
+    """D=126, N=4: more channels than the 128 threads the kernel once had,
+    which it then left unwritten; now a channel a thread of 256."""
+    model, pB, yB, maskB = _files(1, 126, 4, dtype, cuda, k1="exp", k2="exp", steps=6)
+    p = pB.select(0)
+    ssm = model.build_ssm(p)
+    mp = model.moment_params()
+    out = fk.adf_filter_fused(mp, ssm, p.W, p.lik, yB[:, 0], maskB[:, 0], 0.5)
+    wn, xi = fk.sigma_points(mp, dtype, cuda)
+    ref = fk.fused_adf_plain(yB[:, 0], maskB[:, 0].to(dtype), ssm.A, ssm.Q, ssm.Pinf, ssm.H, p.W,
+                             xi, wn, p.lik, damp=0.5, link=mp.link, variant=mp.variant,
+                             z_floor=mp.z_floor)
+    got = (out[0], out[1], out[2], out[3].ttau, out[3].tnu)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_adf_refuses_what_it_cannot_run(cuda):
+    dt_ = torch.float32
+    model, params, ssm, y, mask = _case("matern32", "matern52", 3, 2, dt_, cuda)
+    wn, xi = fk.sigma_points(model.moment_params(), dt_, cuda)
+    args = [y, mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi, wn, params.lik]
+    kw = dict(damp=0.5, link="softplus", variant="amp", z_floor=1e-10)
+    for i in (5, 6, 8):  # H, W, wn: a shape that disagrees with the others
+        bad = list(args)
+        bad[i] = bad[i][..., :-1]
+        with pytest.raises(ValueError, match="has shape"):
+            fk.fused_adf(*bad, **kw)
+    # more subbands than a warp's lanes take, four a lane
+    model, pB, yB, maskB = _files(1, 130, 2, dt_, cuda, k1="exp", k2="exp", steps=4)
+    p = pB.select(0)
+    with pytest.raises(ValueError, match="at most 128 subbands"):
+        fk.adf_filter_fused(model.moment_params(), model.build_ssm(p), p.W, p.lik, yB[:, 0],
+                            maskB[:, 0], 0.5)
+
+
 @pytest.mark.cuda
 def test_adf_mb_refuses_what_it_cannot_run(cuda):
-    # one thread per channel: C = 130 > 128
-    model, pB, yB, maskB = _files(1, 126, 4, torch.float32, cuda, k1="exp", k2="exp", steps=4)
-    with pytest.raises(ValueError, match="one channel a thread"):
+    # more subbands than a warp's lanes take, four a lane: D = 130 > 128
+    model, pB, yB, maskB = _files(1, 130, 2, torch.float32, cuda, k1="exp", k2="exp", steps=4)
+    with pytest.raises(ValueError, match="at most 128 subbands"):
         _adf_mb_pair(model, pB, yB, maskB, 0)
-    # shared layout over the block's limit (float64, D = 100, N = 9)
-    model, pB, yB, maskB = _files(1, 100, 9, torch.float64, cuda, k1="exp", k2="exp", steps=4)
-    with pytest.raises(ValueError, match="shared layout"):
-        _adf_mb_pair(model, pB, yB, maskB, 0)
+    # (the shared layout is a few KB plus the staged sigma points at any
+    # accepted width, so no accepted shape exceeds the block's limit any more)
     model, pB, yB, maskB = _files(2, 3, 2, torch.float32, cuda, steps=8)
     ssmB = model.build_ssm_batch(pB)
     wn, xi = fk.sigma_points(model.moment_params(), torch.float32, cuda)
