@@ -10,9 +10,17 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
 1. K1 fused_fwd, K2 fused_bwd, K3 fused_adf against their plain PyTorch
    versions on the card at the headline model's full width (D=16, N=3,
    matern32/matern52, p_cubature=9), T=4096, in float64 (proves the
-   algorithm) and float32 (proves the working type); then at the main path's
-   own shape in float32: compared with the plain versions over the first
-   20 000 steps, timed over all T=100 000.
+   algorithm) and float32 (proves the working type); K1 and K2, which run
+   as three blocked passes over chunks of T, also at T = 1, 31, 32 (one chunk),
+   33 (a chunk and one step) and 4096 against the sequential plain versions,
+   with sites that hold runs of zeros and one long gap, the last at the
+   chunk length the main path launches with.  Then at the main path's own
+   shape in float32, T=100 000 and the path's own chunk length: K3 against
+   its plain version over the first 20 000 steps; K1 run over all T and held
+   against the plain version on its first 20 000 rows (the filter is causal),
+   K2 over all T against the plain version on its last 20 000 rows (the
+   smoother runs from the end), and each over all T against the same kernel
+   run as one chunk, which is the sequential pass; all timed over all T.
 2. the single-signal path: ``ep_infer(backend="fused")`` at the headline
    benchmark shape (T=100 000, 3 EP sweeps, float32), launch counters reset
    just before one run and read just after; s/sweep over 3 timed runs, and
@@ -24,23 +32,30 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    width (BF=1, D=48, N=9, 3973 sigma points, s_chunk=256, T=512; then
    BF=3, three clusters of eight CTAs, T=128, signals and gaps that differ
    per file), each in float64 and float32, and s_chunk 0 against 256 on the
-   kernel; K1 and K2 at the batched paths' channel counts C=190 and C=57.
+   kernel; K1 and K2 at the batched paths' channel counts C=190 and C=57,
+   at the ragged lengths of phase 1 in both types, T=4096 at the chunk
+   length those paths launch with.
    Every comparison also runs the kernel twice and wants the same bits.
 5. the batched path: ``fill_gaps_batch(engine="ep", backend="fused")`` over
    the ten trained music models in one batch, padded to the corpus length
    T=53 248 with each file's own length and six 321-sample gaps, float32,
    seeded numpy draws from each model's prior; launch counters; files 0 and 9 against the
    single-file ``ep_infer``; s per batch call against the ten files one by
-   one.
+   one; K1 and K2 at the path's own shape (T=53 248, C=190) and chunk length
+   as in phase 1: head and tail of 4096 rows against the plain versions, all
+   T against the one-chunk kernel.
 6. the mixture path: ``separate(engine="ep", backend="fused", s_chunk=256)``
    over three trained source models (joint D=48, N=9, 3973 sigma points),
    T=16 000, float32, a seeded synthetic mixture with known parts; launch
-   counters; K4 ms per step and the re-site's time at this width; the same
-   call at T=2048 in float64 on the card against the CPU.
+   counters; K4 ms per step and the re-site's time at this width; K1 and K2
+   at the path's own shape (T=16 000, C=57) and chunk length as in phase 5;
+   the same call at T=2048 in float64 on the card against the CPU.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path, max abs error vs plain, its time at the path's shape beside the
-plain version's and the least time the card could take (``bound_ms``).  The
+plain version's and the least time the card could take (``bound_ms``); K1 and
+K2 also their chunk length, chunks, threads and launches a pass, all of the
+launch the error was measured on.  The
 last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 """
@@ -113,8 +128,8 @@ PEAK_FLOPS_F32 = 67e12
 
 # The Pallas kernel body each CUDA kernel replaces, and its source.
 KERNELS = {
-    "fused_fwd": ("nsgp_tpu/ops/pallas_kalman.py:112", "fused_kalman.cu"),  # _fwd_kernel
-    "fused_bwd": ("nsgp_tpu/ops/pallas_kalman.py:158", "fused_kalman.cu"),  # _bwd_kernel
+    "fused_fwd": ("nsgp_tpu/ops/pallas_kalman.py:112", "fused_kalman.cuh"),  # _fwd_kernel
+    "fused_bwd": ("nsgp_tpu/ops/pallas_kalman.py:158", "fused_kalman.cuh"),  # _bwd_kernel
     "fused_adf": ("nsgp_tpu/ops/pallas_kalman.py:226", "fused_adf.cuh"),  # _adf_kernel
     "fused_adf_mb": ("nsgp_tpu/ops/pallas_kalman.py:341", "fused_adf_mb.cuh"),  # _adf_kernel_mb
 }
@@ -302,6 +317,17 @@ def random_sites(T, C, seed):
     return ttau, rng.normal(size=(T, C)) * ttau
 
 
+def gappy_sites(T, C, seed):
+    """``random_sites`` with runs of zero sites (five whole rows, seven steps
+    of every third channel) and one long gap, a third of the signal."""
+    ttau, tnu = random_sites(T, C, seed)
+    live = np.ones((T, C))
+    live[T // 8: T // 8 + 5] = 0.0
+    live[T // 4: T // 4 + 7, ::3] = 0.0
+    live[T // 2: T // 2 + T // 3] = 0.0
+    return ttau * live, tnu * live
+
+
 # ---------------------------------------------------------------------------
 # Comparing and timing
 # ---------------------------------------------------------------------------
@@ -347,22 +373,31 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
-def compare(label, name, kern, plain, tol, time_reps, timed=None):
-    """Hold one kernel call against its plain version on the same inputs;
-    time ``timed`` (default: the same kernel call) over ``time_reps`` runs."""
+def timed_plain(plain):
+    """(outputs, device ms) of one run of a plain version."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = plain()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def compare(label, name, kern, plain, tol, time_reps, timed=None, rows=slice(None)):
+    """Hold one kernel call against its plain version on the same inputs:
+    ``plain`` is a call, or the (outputs, ms) of a run already made, and
+    covers the rows ``rows`` of the kernel's outputs.  Time ``timed``
+    (default: the same kernel call) over ``time_reps`` runs."""
     import torch
 
     out_k = kern()
     if not all(torch.equal(a, b) for a, b in zip(out_k, kern())):
         raise AssertionError(f"{name} ({label}): two runs on the same inputs differ in their bits")
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out_p = plain()
-    e1.record()
-    torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1)
-    err_abs, err_rel = max_err(out_k, out_p)
+    out_p, plain_ms = plain if isinstance(plain, tuple) else timed_plain(plain)
+    err_abs, err_rel = max_err([x[rows] for x in out_k], out_p)
     ms = cuda_ms(timed or kern, time_reps)
     log(f"{label} {name}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e} (tol {tol:g}) "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f}")
@@ -372,35 +407,89 @@ def compare(label, name, kern, plain, tol, time_reps, timed=None):
     return dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms)
 
 
-def single_cases(model, params, y, mask, sites_np, steps=None, timing_only=False):
-    """{name: (kernel call, plain call)} for K1-K3 on the card, same inputs,
-    over the first ``steps`` steps (default: all).  K2 smooths the plain K1
-    trajectory, so both see identical inputs (the kernel's own where the
-    cases are only timed and the plain calls not used)."""
-    import torch
-
+def adf_case(model, params, y, mask, steps=None):
+    """(kernel call, plain call) for K3 on the card, same inputs, over the
+    first ``steps`` steps (default: all)."""
     from nsgp_tpu_torch.ops import fused_kalman as fk
 
     ssm = model.build_ssm(params)
     dt_, dev = ssm.A.dtype, ssm.A.device
     n = steps or y.shape[0]
-    tt = torch.tensor(sites_np[0][:n], dtype=dt_, device=dev)
-    tn = torch.tensor(sites_np[1][:n], dtype=dt_, device=dev)
-    pad = torch.diagonal(ssm.pad_eye, dim1=-2, dim2=-1)
     mp = model.moment_params()
     wn, xi = fk.sigma_points(mp, dt_, dev)
-    adf_kw = dict(damp=0.5, link=mp.link, variant=mp.variant, z_floor=mp.z_floor)
+    kw = dict(damp=0.5, link=mp.link, variant=mp.variant, z_floor=mp.z_floor)
+    args = (y[:n].to(dt_), mask[:n].to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi, wn,
+            params.lik)
+    return lambda: fk.fused_adf(*args, **kw), lambda: fk.fused_adf_plain(*args, **kw)
+
+
+def kalman_compare(label, ssm, sites_np, tol, time_reps):
+    """K1 and K2 on the card against their sequential plain versions over all
+    the steps of ``sites_np``, at the wrappers' own chunk length for that
+    length.  K2 smooths the plain K1 trajectory, so both see identical
+    inputs.  Returns {name: numbers}."""
+    import torch
+
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    dt_, dev = ssm.A.dtype, ssm.A.device
+    tt, tn = (torch.tensor(x, dtype=dt_, device=dev) for x in sites_np)
+    pad = torch.diagonal(ssm.pad_eye, dim1=-2, dim2=-1)
     fwd_args = (tt, tn, ssm.A, ssm.Q, ssm.Pinf, ssm.H)
-    filtered = (fk.fused_fwd if timing_only else fk.fused_fwd_plain)(*fwd_args)
-    bwd_args = (*filtered, ssm.A, ssm.Q, pad)
-    adf_args = (y[:n].to(dt_), mask[:n].to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi,
-                wn, params.lik)
-    return {
-        "fused_fwd": (lambda: fk.fused_fwd(*fwd_args), lambda: fk.fused_fwd_plain(*fwd_args)),
-        "fused_bwd": (lambda: fk.fused_bwd(*bwd_args), lambda: fk.fused_bwd_plain(*bwd_args)),
-        "fused_adf": (lambda: fk.fused_adf(*adf_args, **adf_kw),
-                      lambda: fk.fused_adf_plain(*adf_args, **adf_kw)),
+    ref_f = timed_plain(lambda: fk.fused_fwd_plain(*fwd_args))
+    bwd_args = (*ref_f[0], ssm.A, ssm.Q, pad)
+    shape = fk.blocked_launch_shape(*tt.shape)
+    label = f"{label} chunk={shape['chunk']}"
+    return {"fused_fwd": compare(label, "fused_fwd", lambda: fk.fused_fwd(*fwd_args), ref_f,
+                                 tol, time_reps),
+            "fused_bwd": compare(label, "fused_bwd", lambda: fk.fused_bwd(*bwd_args),
+                                 lambda: fk.fused_bwd_plain(*bwd_args), tol, time_reps)}
+
+
+def kalman_path_checks(label, ssm, sites_np, n_plain, tol, time_reps=3):
+    """K1 and K2 at a main path's own shape, over all T of ``sites_np`` and so
+    with the chunk length and the chunks the path launches.  The plain
+    versions are Python loops over T, so they run ``n_plain`` steps: K1's
+    first ``n_plain`` rows against the plain filter of those steps (the filter
+    is causal), K2's last ``n_plain`` rows against the plain smoother of that
+    tail of the same filtered trajectory (the smoother starts at the end).
+    Over all T each is held against the same kernel run as one chunk, which is
+    the sequential pass that the ragged checks hold against the plain version:
+    that covers the carries of every chunk.  Returns {name: numbers}, timed
+    over all T."""
+    import torch
+
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    dt_, dev = ssm.A.dtype, ssm.A.device
+    tt, tn = (torch.tensor(x, dtype=dt_, device=dev) for x in sites_np)
+    T, C = tt.shape
+    pad = torch.diagonal(ssm.pad_eye, dim1=-2, dim2=-1)
+    model_args = (ssm.A, ssm.Q, ssm.Pinf, ssm.H)
+    shape = fk.blocked_launch_shape(T, C)
+    label = f"{label} T={T} C={C} chunk={shape['chunk']} chunks={shape['chunks']}"
+    fwd = lambda **kw: fk.fused_fwd(tt, tn, *model_args, **kw)
+    filtered = fwd()
+    bwd = lambda **kw: fk.fused_bwd(*filtered, ssm.A, ssm.Q, pad, **kw)
+    head, tail = slice(0, n_plain), slice(T - n_plain, T)
+    out = {
+        "fused_fwd": compare(f"{label} (plain over the first {n_plain} steps)", "fused_fwd", fwd,
+                             lambda: fk.fused_fwd_plain(tt[head], tn[head], *model_args), tol,
+                             time_reps, rows=head),
+        "fused_bwd": compare(f"{label} (plain over the last {n_plain} steps)", "fused_bwd", bwd,
+                             lambda: fk.fused_bwd_plain(filtered[0][tail], filtered[1][tail],
+                                                        ssm.A, ssm.Q, pad), tol, time_reps,
+                             rows=tail),
     }
+    for name, kern in (("fused_fwd", fwd), ("fused_bwd", bwd)):
+        err_abs, err_rel = max_err(kern(), kern(_chunk=T))
+        log(f"{label} {name}: all T against the one-chunk kernel max_abs_err={err_abs:.3e} "
+            f"max_rel_err={err_rel:.3e} (tol {tol:g})")
+        if not err_rel <= tol:
+            raise AssertionError(f"{name} ({label}): the blocked passes disagree with the "
+                                 f"sequential pass over all T: rel err {err_rel:.3e} > {tol:g}")
+        out[name].update(one_chunk_max_abs_err=err_abs, plain_steps=n_plain, **shape)
+    return out
 
 
 def adf_mb_case(model, paramsB, yB, maskB, s_chunk, steps=None, **kernel_only):
@@ -420,26 +509,47 @@ def adf_mb_case(model, paramsB, yB, maskB, s_chunk, steps=None, **kernel_only):
             lambda: fk.fused_adf_mb_plain(*args, **kw))
 
 
-def wide_cases(model, paramsB, T, seed, timing_only=False):
-    """K1 and K2 over all files' channels (C = BF * (D + N)), random sites
-    (``timing_only`` as in ``single_cases``)."""
+def blocked_checks(label, ssm, tol, seed, path_chunk):
+    """K1 and K2 (three blocked passes over chunks of T) against their
+    sequential plain versions at ragged lengths: one step, just under a
+    chunk, one chunk, a chunk and one step, and 4096 steps in chunks of
+    ``path_chunk``, the length the main path at this width launches with;
+    twice each for the same bits; padded state dims exactly zero."""
     import torch
 
     from nsgp_tpu_torch.ops import fused_kalman as fk
-    from nsgp_tpu_torch.ops.ssm import flatten_files
 
-    flat = flatten_files(model.build_ssm_batch(paramsB))
-    dt_, dev = flat.A.dtype, flat.A.device
-    tt, tn = (torch.tensor(x, dtype=dt_, device=dev)
-              for x in random_sites(T, flat.num_channels, seed))
-    pad = torch.diagonal(flat.pad_eye, dim1=-2, dim2=-1)
-    fwd_args = (tt, tn, flat.A, flat.Q, flat.Pinf, flat.H)
-    filtered = (fk.fused_fwd if timing_only else fk.fused_fwd_plain)(*fwd_args)
-    bwd_args = (*filtered, flat.A, flat.Q, pad)
-    return flat.num_channels, {
-        "fused_fwd": (lambda: fk.fused_fwd(*fwd_args), lambda: fk.fused_fwd_plain(*fwd_args)),
-        "fused_bwd": (lambda: fk.fused_bwd(*bwd_args), lambda: fk.fused_bwd_plain(*bwd_args)),
-    }
+    dt_, dev = ssm.A.dtype, ssm.A.device
+    C = ssm.num_channels
+    pad = torch.diagonal(ssm.pad_eye, dim1=-2, dim2=-1)
+    dead = pad > 0
+    L = fk.MIN_CHUNK
+    for T in (1, 31, L, L + 1, T_KERNEL):
+        tt, tn = (torch.tensor(x, dtype=dt_, device=dev) for x in gappy_sites(T, C, seed))
+        fwd_args = (tt, tn, ssm.A, ssm.Q, ssm.Pinf, ssm.H)
+        ref_f = fk.fused_fwd_plain(*fwd_args)
+        bwd_args = (*ref_f, ssm.A, ssm.Q, pad)
+        chunk = path_chunk if T == T_KERNEL else None
+        shape = fk.blocked_launch_shape(T, C, chunk)
+        errs = {}
+        for name, kern, plain in (("fused_fwd", fk.fused_fwd, lambda: ref_f),
+                                  ("fused_bwd", fk.fused_bwd,
+                                   lambda: fk.fused_bwd_plain(*bwd_args))):
+            args = fwd_args if name == "fused_fwd" else bwd_args
+            out = kern(*args, _chunk=chunk)
+            if not all(torch.equal(a, b) for a, b in zip(out, kern(*args, _chunk=chunk))):
+                raise AssertionError(f"{name} ({label} T={T}): two runs differ in their bits")
+            if bool(dead.any()) and (float(out[0][:, dead].abs().max()) != 0.0 or float(
+                    (out[1] * (pad[:, :, None] + pad[:, None, :])).abs().max()) != 0.0):
+                raise AssertionError(f"{name} ({label} T={T}): a padded state dim is not zero")
+            errs[name] = max_err(out, plain())[1]
+        log(f"{label} C={C} T={T} chunk={shape['chunk']} chunks={shape['chunks']}: "
+            f"max_rel_err fused_fwd={errs['fused_fwd']:.3e} fused_bwd={errs['fused_bwd']:.3e} "
+            f"(tol {tol:g})")
+        for name, err in errs.items():
+            if not err <= tol:
+                raise AssertionError(f"{name} ({label} C={C} T={T}) disagrees with its "
+                                     f"sequential plain version: rel err {err:.3e} > {tol:g}")
 
 
 def check_posterior(label, nlZ, Eft, Varft, shape):
@@ -472,6 +582,7 @@ def main() -> int:
     from nsgp_tpu_torch.ops import _build
     from nsgp_tpu_torch.ops import fused_kalman as fk
     from nsgp_tpu_torch.ops.kalman import Sites
+    from nsgp_tpu_torch.ops.ssm import flatten_files
 
     t_start = time.perf_counter()
     counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
@@ -498,22 +609,25 @@ def main() -> int:
         y, _, _ = sample_prior(gen, model, params, T_KERNEL)  # CPU noise, card model
         mask = torch.ones(T_KERNEL, dtype=torch.bool, device=dev)
         mask[1000:1100] = False  # a gap: unobserved steps keep zero sites
-        sites = random_sites(T_KERNEL, D + N, seed=1)
-        for name, (kern, plain) in single_cases(model, params, y, mask, sites).items():
-            compare(f"phase1 {label} T={T_KERNEL}", name, kern, plain, tol, time_reps=5)
+        ssm = model.build_ssm(params)
+        kalman_compare(f"phase1 {label} T={T_KERNEL}", ssm,
+                       random_sites(T_KERNEL, D + N, seed=1), tol, time_reps=5)
+        compare(f"phase1 {label} T={T_KERNEL}", "fused_adf", *adf_case(model, params, y, mask),
+                tol, time_reps=5)
+        blocked_checks(f"phase1 {label} blocked", ssm, tol, seed=7,
+                       path_chunk=fk.chunk_length(T_MAIN, D + N))
     model, params, y = bench_inputs(torch.float32, dev)
     mask = torch.ones(T_MAIN, dtype=torch.bool, device=dev)
-    sites = random_sites(T_MAIN, D + N, seed=2)
-    full = single_cases(model, params, y, mask, sites, timing_only=True)
-    head = single_cases(model, params, y, mask, sites, steps=T_PLAIN)
-    single = {name: compare(f"phase1 f32 T={T_MAIN} (plain over {T_PLAIN} steps)", name,
-                            head[name][0], head[name][1], TOL_F32, 3, timed=full[name][0])
-              for name in full}
+    single = kalman_path_checks("phase1 f32", model.build_ssm(params),
+                                random_sites(T_MAIN, D + N, seed=2), T_PLAIN, TOL_F32)
+    single["fused_adf"] = compare(
+        f"phase1 f32 T={T_MAIN} (plain over {T_PLAIN} steps)", "fused_adf",
+        *adf_case(model, params, y, mask, steps=T_PLAIN), TOL_F32, 3,
+        timed=adf_case(model, params, y, mask)[0])
     bs = model.build_ssm(params).block_size
     single["fused_fwd"]["bound"] = bound_fwd(T_MAIN, D + N, bs)
     single["fused_bwd"]["bound"] = bound_bwd(T_MAIN, D + N, bs)
     single["fused_adf"]["bound"] = bound_adf(T_MAIN, 1, D, N, 77, bs, T_MAIN)
-    del full, head
 
     # ---- phase 2: the single-signal path at the headline shape ----------------
     cfg = EPConfig(ep_itts=EP_ITTS, backend="fused", moment_chunk=8192)
@@ -573,15 +687,20 @@ def main() -> int:
         kern, plain = adf_mb_case(cmodel, cparamsB, cyB, cmaskB, 0, steps=T_KERNEL)
         batch = compare(f"phase4a {label} BF={cyB.shape[0]} D={cmodel.D} N={cmodel.N} "
                         f"T={T_KERNEL}", "fused_adf_mb", kern, plain, tol, time_reps=3)
-    C_b, cases = wide_cases(cmodel, cparamsB, T_KERNEL, seed=3)
-    wide = {name: compare(f"phase4 f32 C={C_b} T={T_KERNEL}", name, k, p, TOL_F32, 3)
-            for name, (k, p) in cases.items()}
+        flat = flatten_files(cmodel.build_ssm_batch(cparamsB))
+        blocked_checks(f"phase4 {label} blocked", flat, tol, seed=8,
+                       path_chunk=fk.chunk_length(cyB.shape[1], flat.num_channels))
+    kalman_compare(f"phase4 f32 C={flat.num_channels} T={T_KERNEL}", flat,
+                   random_sites(T_KERNEL, flat.num_channels, seed=3), TOL_F32, time_reps=3)
     mix = {}
     for dtype, tol, label in ((torch.float64, TOL_F64, "f64"), (torch.float32, TOL_F32, "f32")):
         models, plist, y_mix, _ = mixture_inputs(dtype, dev, T_MIX_KERNEL)
         jm, jp, _ = mixture.join_models(models, plist, lik=MIX_LIK)
         jpB = stack_params([jp])
         S_mix = fk.sigma_points(jm.moment_params(), dtype, dev)[0].shape[0]
+        flat = flatten_files(jm.build_ssm_batch(jpB))
+        blocked_checks(f"phase4 {label} blocked", flat, tol, seed=9,
+                       path_chunk=fk.chunk_length(T_MIX, flat.num_channels))
         kern, plain = adf_mb_case(jm, jpB, y_mix[None], torch.ones_like(y_mix[None]) > 0, 256)
         mix = compare(f"phase4b {label} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 "
                       f"T={T_MIX_KERNEL}", "fused_adf_mb", kern, plain, tol, time_reps=1)
@@ -605,10 +724,9 @@ def main() -> int:
                 kern, plain, tol, time_reps=1)
     if (jm.D, jm.N, S_mix) != (48, 9, 3973):
         raise AssertionError(f"mixture width is D={jm.D}, N={jm.N}, S={S_mix}")
-    C_m, cases = wide_cases(jm, jpB, T_KERNEL, seed=4)
-    wide_m = {name: compare(f"phase4 f32 C={C_m} T={T_KERNEL}", name, k, p, TOL_F32, 3)
-              for name, (k, p) in cases.items()}
-    del cases
+    kalman_compare(f"phase4 f32 C={flat.num_channels} T={T_KERNEL}", flat,
+                   random_sites(T_KERNEL, flat.num_channels, seed=4), TOL_F32, time_reps=3)
+    del flat
 
     # ---- phase 5: the batched path at full width -------------------------------
     cmodel, cparamsB, cyB, cmaskB, cgapsB, lengths = corpus_inputs(torch.float32, dev)
@@ -641,7 +759,10 @@ def main() -> int:
     for b in (0, BF_c - 1):
         r1 = one_file(b)
         _, rel = max_err([rb.Eft[b], rb.Varft[b], rb.nlZ[b]], [r1.Eft, r1.Varft, r1.nlZ])
-        log(f"phase5 file {b}: batch vs single-file ep_infer max_rel_err={rel:.3e} (tol {TOL_F32:g})")
+        same = all(torch.equal(a, c) for a, c in zip((rb.Eft[b], rb.Varft[b]), (r1.Eft, r1.Varft)))
+        log(f"phase5 file {b}: batch vs single-file ep_infer max_rel_err={rel:.3e} (tol "
+            f"{TOL_F32:g}); same bits: {same} (chunk "
+            f"{fk.chunk_length(T_c, BF_c * C_c)} in the batch, {fk.chunk_length(T_c, C_c)} alone)")
         if not rel <= TOL_F32:
             raise AssertionError(f"phase5: file {b} of the batch disagrees with ep_infer")
     del gres, rb, r1
@@ -659,12 +780,12 @@ def main() -> int:
     batch["bound"] = bound_adf(T_c, BF_c, cmodel.D, cmodel.N, 77, bs_c, observed)
     log(f"phase5 K4 alone at BF={BF_c} T={T_c}: {batch['ms']:.1f} ms "
         f"({1e3 * batch['ms'] / T_c:.2f} us/step, {observed} observed (file, step) pairs)")
-    C_w, cases = wide_cases(cmodel, cparamsB, T_c, seed=5, timing_only=True)
-    for name, (k, _) in cases.items():
-        wide[name]["ms"] = cuda_ms(k, 3)
-        wide[name]["bound"] = (bound_fwd if name == "fused_fwd" else bound_bwd)(T_c, C_w, bs_c)
-        log(f"phase5 {name} alone at C={C_w} T={T_c}: {wide[name]['ms']:.1f} ms")
-    del cases, kern
+    C_w = BF_c * C_c
+    wide = kalman_path_checks("phase5 f32", flatten_files(cmodel.build_ssm_batch(cparamsB)),
+                              random_sites(T_c, C_w, seed=5), T_KERNEL, TOL_F32)
+    wide["fused_fwd"]["bound"] = bound_fwd(T_c, C_w, bs_c)
+    wide["fused_bwd"]["bound"] = bound_bwd(T_c, C_w, bs_c)
+    del kern
 
     # ---- phase 6: the mixture path at full width -------------------------------
     models, plist, y_mix, parts = mixture_inputs(torch.float32, dev, T_MIX)
@@ -699,12 +820,12 @@ def main() -> int:
     log(f"phase6 K4 alone at mixture width: {mix['ms']:.1f} ms for T={T_MIX} = "
         f"{mix['ms'] / T_MIX:.4f} ms/step (T=96 000 would take {96.0 * mix['ms'] / T_MIX:.1f} s); "
         f"one re-site of all T (moment_chunk=64): {resite_s:.3f} s")
-    _, cases = wide_cases(jm, jpB, T_MIX, seed=6, timing_only=True)
-    for name, (k, _) in cases.items():
-        wide_m[name]["ms"] = cuda_ms(k, 3)
-        wide_m[name]["bound"] = (bound_fwd if name == "fused_fwd" else bound_bwd)(T_MIX, C_m, bs_m)
-        log(f"phase6 {name} alone at C={C_m} T={T_MIX}: {wide_m[name]['ms']:.1f} ms")
-    del sres, rm, kern, cases
+    C_m = jm.D + jm.N
+    wide_m = kalman_path_checks("phase6 f32", flatten_files(jm.build_ssm_batch(jpB)),
+                                random_sites(T_MIX, C_m, seed=6), T_KERNEL, TOL_F32)
+    wide_m["fused_fwd"]["bound"] = bound_fwd(T_MIX, C_m, bs_m)
+    wide_m["fused_bwd"]["bound"] = bound_bwd(T_MIX, C_m, bs_m)
+    del sres, rm, kern
     m64, p64, y64m, parts64 = mixture_inputs(torch.float64, dev, T_MIX_F64)
     sep64 = lambda device: separate(m64, p64, y64m, engine="ep", true_sources=parts64,
                                     n_samples=0, mixture_lik=MIX_LIK, device=device, **MIX_KW)
@@ -724,17 +845,23 @@ def main() -> int:
     # One entry per kernel at its main path's shape: K1-K3 the single-signal
     # path (phase 2), K4 the batched path (phase 5).  `launches` is that run's
     # count; `launches_by_path` has all three paths.  `plain_ms` is the plain
-    # version over `plain_steps` steps (it is a Python loop over T);
-    # `other_shapes` holds the same numbers where another path runs the
-    # kernel at another shape.  No single PyTorch call computes a T-long
+    # version over `plain_steps` steps (it is a Python loop over T: for K1
+    # the first, for K2 the last `plain_steps` rows of the kernel's run over
+    # all T, so `max_abs_err` is of the launch that `chunk` and `chunks`
+    # describe; `one_chunk_max_abs_err` is over all T against the same kernel
+    # as one sequential chunk); `other_shapes` holds the same numbers where
+    # another path runs the kernel at another shape.  No single PyTorch call computes a T-long
     # data-dependent recursion, so `library_ms` is null throughout.
-    def entry(name, nums, launches, shape, plain_steps, other=None):
+    def numbers(nums, shape, **more):
+        nums = dict(nums)
+        bound_ms, bound_by = nums.pop("bound")
+        return dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by, **nums, **more)
+
+    def entry(name, nums, shape, path_launches, other=None, **more):
         replaces, source = KERNELS[name]
         e = dict(name=name, route="cuda", source=f"nsgp_tpu_torch/csrc/{source}",
-                 replaces=replaces, launches=launches, max_abs_err=nums["max_abs_err"],
-                 ms=nums["ms"], plain_ms=nums["plain_ms"], bound_ms=nums["bound"][0],
-                 bound_by=nums["bound"][1], library_ms=None, shape=shape,
-                 plain_steps=plain_steps,
+                 replaces=replaces, launches=path_launches[name], library_ms=None,
+                 **numbers(nums, shape, **more),
                  launches_by_path={"single": launches_single[name],
                                    "batch": launches_batch[name],
                                    "mixture": launches_mix[name]})
@@ -742,28 +869,21 @@ def main() -> int:
             e["other_shapes"] = other
         return e
 
-    def other(nums, shape, plain_steps, **more):
-        return dict(shape=shape, ms=nums["ms"], plain_ms=nums["plain_ms"],
-                    plain_steps=plain_steps, max_abs_err=nums["max_abs_err"],
-                    bound_ms=nums["bound"][0], bound_by=nums["bound"][1], **more)
-
     s_shape = f"T={T_MAIN} C={D + N} bs=4 f32"
     w_shape = f"T={T_c} C={C_w} bs={bs_c} f32"
     m_shape = f"T={T_MIX} C={C_m} bs={bs_m} f32"
     kernels = [
-        entry("fused_fwd", single["fused_fwd"], launches_single["fused_fwd"], s_shape, T_PLAIN,
-              [other(wide["fused_fwd"], w_shape, T_KERNEL),
-               other(wide_m["fused_fwd"], m_shape, T_KERNEL)]),
-        entry("fused_bwd", single["fused_bwd"], launches_single["fused_bwd"], s_shape, T_PLAIN,
-              [other(wide["fused_bwd"], w_shape, T_KERNEL),
-               other(wide_m["fused_bwd"], m_shape, T_KERNEL)]),
-        dict(entry("fused_adf", single["fused_adf"], launches_single["fused_adf"],
-                   f"T={T_MAIN} D={D} N={N} S=77 bs=4 f32", T_PLAIN), **fk.adf_launch_shape(77)),
-        dict(entry("fused_adf_mb", batch, launches_batch["fused_adf_mb"],
-                   f"T={T_c} BF={BF_c} D={cmodel.D} N={cmodel.N} S=77 bs={bs_c} f32", T_KERNEL,
-                   [other(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 "
-                               f"bs={bs_m} f32", T_MIX_KERNEL, **fk.adf_launch_shape(S_mix))]),
-             **fk.adf_launch_shape(77)),
+        entry(name, single[name], s_shape, launches_single,
+              [numbers(wide[name], w_shape), numbers(wide_m[name], m_shape)])
+        for name in ("fused_fwd", "fused_bwd")
+    ] + [
+        entry("fused_adf", single["fused_adf"], f"T={T_MAIN} D={D} N={N} S=77 bs=4 f32",
+              launches_single, plain_steps=T_PLAIN, **fk.adf_launch_shape(77)),
+        entry("fused_adf_mb", batch,
+              f"T={T_c} BF={BF_c} D={cmodel.D} N={cmodel.N} S=77 bs={bs_c} f32", launches_batch,
+              [numbers(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 bs={bs_m} "
+                            f"f32", plain_steps=T_MIX_KERNEL, **fk.adf_launch_shape(S_mix))],
+              plain_steps=T_KERNEL, **fk.adf_launch_shape(77)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

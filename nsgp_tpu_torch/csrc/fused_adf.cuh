@@ -16,7 +16,7 @@
 //   y, obs, lZ (T,)   tt, tn (T, C)   ms (T, C, bs)   Ps (T, C, bs, bs)
 //   A, Q, Pinf (C, bs, bs)   H (C, bs)   W (D, N)   xi (S, N)   wn (S,)
 //
-// Build flags as fused_kalman.cu (never --use_fast_math).  The kernel is
+// Build flags as fused_kalman.cuh (never --use_fast_math).  The kernel is
 // compiled once per dtype, by fused_adf_f32.cu and fused_adf_f64.cu, so the
 // two halves of its instantiations build side by side.
 

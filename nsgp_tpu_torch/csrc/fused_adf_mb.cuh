@@ -30,7 +30,7 @@
 //   ms (T, BF, C, bs)         Ps (T, BF, C, bs, bs)
 // Viewed as (T, BF*C, ...) they are what K1 and K2 take.
 //
-// Build flags as fused_kalman.cu (never --use_fast_math).  The kernel is
+// Build flags as fused_kalman.cuh (never --use_fast_math).  The kernel is
 // compiled once per dtype, by fused_adf_mb_f32.cu and fused_adf_mb_f64.cu, so
 // the two halves of its instantiations build side by side.
 

@@ -1,6 +1,6 @@
 // Shared pieces of the fused Kalman / ADF kernels (sm_90a): number traits,
 // the per-channel block algebra and the link functions.  Included by
-// fused_kalman.cu (K1, K2) and, through adf_step.cuh, by fused_adf.cuh (K3)
+// fused_kalman.cuh (K1, K2) and, through adf_step.cuh, by fused_adf.cuh (K3)
 // and fused_adf_mb.cuh (K4); everything lives in an anonymous namespace, so
 // each translation unit gets its own copy and the objects link into one
 // library.

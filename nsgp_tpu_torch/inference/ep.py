@@ -17,6 +17,9 @@ Two backends:
 
 - ``"seq"`` (JAX ``"xla"``): the sequential engine of ``ops.kalman`` with
   the reference's last-site bookkeeping.  Python loops over T — small T.
+  With ``parallel=True`` and ``chunk > 0`` the fixed-site sweeps (>= 2) run
+  the blocked two-level scans of ``ops.bscan`` and re-site all T, as the JAX
+  package's parallel path does.
 - ``"fused"`` (JAX ``"pallas"``): the fused passes of ``ops.fused_kalman``
   and the all-T re-site.  On CUDA tensors every pass is one hand-written
   kernel launch; on CPU tensors the same passes run as their plain torch
@@ -33,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
-from nsgp_tpu_torch.ops import fused_kalman, kalman
+from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
 from nsgp_tpu_torch.utils.device import resolve_device
@@ -52,9 +55,10 @@ class EPConfig(NamedTuple):
     backend: str = "seq"  # 'seq' | 'fused'
     s_chunk: int = 0  # sigma points per rescale chunk of the batched ADF
     # kernel (0 = all in one chunk); the single-signal kernel ignores it
+    parallel: bool = False  # backend 'seq': blocked parallel-in-time passes
+    chunk: int = 512  # blocked-scan chunk of the parallel path (0 = the
+    # one-level log-depth scan, not ported)
     # Not ported yet (they raise NotImplementedError when set):
-    parallel: bool = False  # parallel-in-time passes
-    chunk: int = 512  # blocked-scan chunk of the parallel path
     jitter: float = 0.0  # smoother pseudo-prediction ridge
     channel_axis: str = ""  # channel sharding
     time_axis: str = ""  # time sharding
@@ -81,15 +85,19 @@ def _check_config(cfg: EPConfig) -> None:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; available: {BACKENDS}")
     unported = {
-        "parallel": cfg.parallel,
-        "chunk": cfg.chunk != EPConfig._field_defaults["chunk"],
+        # the one-level scan (chunk = 0); the fused backend has its own
+        # blocked passes inside the kernels and no parallel switch
+        "parallel": cfg.parallel and (cfg.chunk <= 0 or cfg.backend != "seq"),
+        # a chunk set without the path that reads it
+        "chunk": not cfg.parallel and cfg.chunk != EPConfig._field_defaults["chunk"],
         "jitter": cfg.jitter != 0.0,
         "channel_axis": bool(cfg.channel_axis),
         "time_axis": bool(cfg.time_axis),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
-        raise NotImplementedError(f"EPConfig fields not ported yet: {bad}")
+        raise NotImplementedError(f"EPConfig fields not ported yet, or set without the option "
+                                  f"that reads them: {bad}")
 
 
 def _mom_point(model: GTNMFModel, params: GTNMFParams):
@@ -149,6 +157,8 @@ def _forward_backward(ssm, sites: Sites, cfg: EPConfig):
     trajectories (T, C*bs) / (T, C*bs*bs)."""
     if cfg.backend == "fused":
         return fused_kalman.filter_smoother_fused(ssm, sites)
+    if cfg.parallel:
+        return bscan.blocked_filter_smoother(ssm, sites, cfg.chunk)
     fr = kalman.filter_with_sites(ssm, sites, store=True)
     return kalman.rts_smoother(ssm, fr)
 
@@ -185,8 +195,10 @@ def ep_infer(
     # The sequential backend follows the reference's exact last-site
     # bookkeeping (forward re-match at k=T, backward re-site over k<T, nlZ
     # mixing the forward lZ(T) with the backward lZ(1..T-1) —
-    # gf_ep_modulator_nmf.m:141, :207, :277).  Fused keeps the all-T re-site.
-    seq = not fused
+    # gf_ep_modulator_nmf.m:141, :207, :277).  Fused and parallel keep the
+    # all-T re-site.
+    all_T = fused or config.parallel
+    seq = not all_T
     last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
     last_only[-1] = True
 
@@ -211,7 +223,7 @@ def ep_infer(
             nlZ[0] = -torch.sum(lZ)
             lZ_final = lZ
             lZ_last = lZ[-1]
-        elif fused:
+        elif all_T:
             ms, Ps = _forward_backward(ssm, sites, config)
         else:
             # Reference quirk: later forward passes still re-match the site

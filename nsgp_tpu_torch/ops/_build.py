@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "nsgp_kernels"
-# No --use_fast_math: see the note at the top of csrc/fused_kalman.cu.
+# No --use_fast_math: see the note at the top of csrc/fused_kalman.cuh.
 # -Xptxas -v: every kernel's registers, shared memory and spills go to the
 # build log beside the library (``ptxas_log_path``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    "nsgp_fused_fwd": ([_i, _i] + [_p] * 8 + [_i, _i, _p], _i),
-    "nsgp_fused_bwd": ([_i, _i] + [_p] * 7 + [_i, _i, _p], _i),
+    "nsgp_fused_fwd_f32": ([_i] + [_p] * 10 + [_i, _i, _i, _p], _i),
+    "nsgp_fused_fwd_f64": ([_i] + [_p] * 10 + [_i, _i, _i, _p], _i),
+    "nsgp_fused_bwd_f32": ([_i] + [_p] * 9 + [_i, _i, _i, _p], _i),
+    "nsgp_fused_bwd_f64": ([_i] + [_p] * 9 + [_i, _i, _i, _p], _i),
     "nsgp_fused_adf_f32": ([_i] + [_p] * 10 + [_d, _d] + [_i] * 6 + [_p] * 6, _i),
     "nsgp_fused_adf_f64": ([_i] + [_p] * 10 + [_d, _d] + [_i] * 6 + [_p] * 6, _i),
     "nsgp_adf_threads": ([], _i),

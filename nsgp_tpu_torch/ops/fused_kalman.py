@@ -1,9 +1,11 @@
 """Fused filter / smoother / ADF passes: CUDA kernels and their plain twins.
 
-Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Four kernels, each a whole
-sequential pass over T in one launch (``csrc/fused_kalman.cu``,
-``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``; K3 and K4 share their step,
-``csrc/adf_step.cuh``):
+Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Four kernels, each a whole pass
+over T (``csrc/fused_kalman.cuh``, ``csrc/fused_adf.cuh``,
+``csrc/fused_adf_mb.cuh``; K3 and K4 share their step, ``csrc/adf_step.cuh``).
+K3 and K4 are one launch each; K1 and K2, whose steps compose, run as three
+blocked parallel-in-time launches over chunks of T (``chunk_length``), of
+which ``fused_*_blocked_plain`` are the plain versions:
 
     fused_fwd     (K1)  forward filter with fixed sites    <- _fwd_kernel
     fused_bwd     (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
@@ -16,7 +18,7 @@ plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
 at step 0 with no first-step skip, no symmetrisation, the Cholesky gain,
 sqrt(max(a, 1e-12)) for 'sq'); on CUDA tensors it launches the kernel or
 raises.  There is no fallback between the two.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches`` (one a call, whatever the passes).
 
 Trajectories are C-major, (T, C, bs) / (T, C, bs, bs), exactly T steps: the
 TPU kernels' b-major (Tp*bs, C) rows and the padding of T to a block exist
@@ -146,6 +148,189 @@ def fused_bwd_plain(ms, Ps, A, Q, pad):
         sm[t] = mn
         sP[t] = Pn
     return sm, sP
+
+
+# ---------------------------------------------------------------------------
+# The blocked passes of K1 and K2, as the kernels run them
+# ---------------------------------------------------------------------------
+
+MIN_CHUNK, MAX_CHUNK = 32, 512
+
+
+def chunk_length(T: int, C: int) -> int:
+    """Steps a chunk of the blocked K1 / K2 passes: a power of two in
+    [32, 512].  Passes 1 and 3 walk L steps in every (chunk, channel) thread
+    and pass 2 walks the T / L chunk totals in one thread a channel, so the
+    dependent depth is about 2.5 L steps and T / L applications of a total,
+    which cost about 1.7 steps each: least near sqrt(T / 1.5), as timed on an
+    H100 at T = 16 000 .. 100 000 and C = 19, 57, 190
+    (``tools/time_kalman.py --sweep``).  C does not enter the rule: no width
+    that was timed moved the best length."""
+    L = 2 ** round(0.5 * math.log2(max(T, 2) / 1.5))
+    return min(max(L, MIN_CHUNK), MAX_CHUNK)
+
+
+def _outer(u, v):
+    return u[..., :, None] * v[..., None, :]
+
+
+def _solve_pivoted(M, B):
+    """X with M X = B by Gaussian elimination with partial pivoting, unrolled
+    over the block size and elementwise over the leading axes (the kernel's
+    arithmetic: the pivot row bubbles up by compare-and-swap of whole rows,
+    one division a pivot).
+    M (..., bs, bs), B (..., bs, k)."""
+    bs = M.shape[-1]
+    rows = [torch.cat([M[..., i, :], B[..., i, :]], dim=-1) for i in range(bs)]
+    inv = [None] * bs
+    for j in range(bs):
+        for i in range(j + 1, bs):
+            swap = (rows[i][..., j].abs() > rows[j][..., j].abs())[..., None]
+            rows[j], rows[i] = (torch.where(swap, rows[i], rows[j]),
+                                torch.where(swap, rows[j], rows[i]))
+        inv[j] = 1.0 / rows[j][..., j]
+        for i in range(j + 1, bs):
+            rows[i] = rows[i] - (rows[i][..., j] * inv[j])[..., None] * rows[j]
+    x = [None] * bs
+    for i in reversed(range(bs)):
+        s = rows[i][..., bs:]
+        for k in range(i + 1, bs):
+            s = s - rows[i][..., k, None] * x[k]
+        x[i] = s * inv[i][..., None]
+    return torch.stack(x, dim=-2)
+
+
+def _fwd_total_step(A, At, Q, H, tt, tn, tot):
+    """Pass 1 of K1: fold one step into a chunk's total (At, b, Cm, eta, J).
+    (b, Cm) take the filter step of ``fused_fwd_plain`` from (0, 0), the
+    moments given the chunk's incoming state x0; At is the linear part in x0;
+    (eta, J) gather what the chunk's sites say of x0, each step one rank-one
+    term through h = H At (the combine of ``ops.pscan`` with a single step on
+    the right, whose (I + C J)^-1 is the scalar 1 / z here)."""
+    Atot, b, Cm, eta, J = tot
+    mp, Pp = _predict(A, At, Q, b, Cm)
+    Ap = A @ Atot
+    fmu, PH, HPH = _observe(H, mp, Pp)
+    z = tt * HPH + 1.0
+    v = (tt * fmu - tn) / z
+    w = tt / z
+    h = (H[..., :, None] * Ap).sum(-2)  # row H Ap
+    eta = eta - h * v[..., None]
+    J = J + w[..., None, None] * _outer(h, h)
+    Atot = Ap - w[..., None, None] * _outer(PH, h)
+    b, Cm = _update(tt, tn, fmu, HPH, PH, mp, Pp)
+    return Atot, b, Cm, eta, J
+
+
+def _fwd_apply_total(tot, m, P):
+    """Pass 2 of K1: a chunk's total applied to its incoming state:
+    D = (I + P J)^-1, m <- At D (m + P eta) + b, P <- At sym(D P) At' + Cm."""
+    Atot, b, Cm, eta, J = tot
+    bs = m.shape[-1]
+    M = torch.eye(bs, dtype=m.dtype, device=m.device) + P @ J
+    rhs = torch.cat([P, (m + (P @ eta[..., None])[..., 0])[..., None]], dim=-1)
+    X = _solve_pivoted(M, rhs)
+    DP = 0.5 * (X[..., :bs] + X[..., :bs].transpose(-1, -2))
+    m = (Atot @ X[..., bs:])[..., 0] + b
+    return m, Atot @ DP @ Atot.transpose(-1, -2) + Cm
+
+
+def fused_fwd_blocked_plain(ttau, tnu, A, Q, Pinf, H, chunk=None):
+    """K1 as the kernel computes it, in three passes over chunks of
+    ``chunk`` steps (default ``chunk_length``), vectorised over chunks and
+    channels.  One chunk is ``fused_fwd_plain`` itself."""
+    T, C = ttau.shape
+    bs = H.shape[1]
+    L = chunk or chunk_length(T, C)
+    nc = -(-T // L)
+    if nc == 1:
+        return fused_fwd_plain(ttau, tnu, A, Q, Pinf, H)
+    At = A.transpose(-1, -2)
+    kw = dict(dtype=A.dtype, device=A.device)
+    padT = nc * L - T  # zero sites: predictions that are trimmed at the end
+    tt = torch.nn.functional.pad(ttau, (0, 0, 0, padT)).reshape(nc, L, C)
+    tn = torch.nn.functional.pad(tnu, (0, 0, 0, padT)).reshape(nc, L, C)
+    # pass 1: totals of the chunks 0 .. nc-2 (the last one's is never used)
+    tot = (torch.eye(bs, **kw).expand(nc - 1, C, bs, bs), torch.zeros((nc - 1, C, bs), **kw),
+           torch.zeros((nc - 1, C, bs, bs), **kw), torch.zeros((nc - 1, C, bs), **kw),
+           torch.zeros((nc - 1, C, bs, bs), **kw))
+    for i in range(L):
+        tot = _fwd_total_step(A, At, Q, H, tt[:-1, i], tn[:-1, i], tot)
+    # pass 2: the state that enters each chunk, from (0, Pinf)
+    m0 = torch.empty((nc, C, bs), **kw)
+    P0 = torch.empty((nc, C, bs, bs), **kw)
+    m0[0], P0[0] = 0.0, Pinf
+    for k in range(nc - 1):
+        m0[k + 1], P0[k + 1] = _fwd_apply_total(tuple(x[k] for x in tot), m0[k], P0[k])
+    # pass 3: the sequential step inside every chunk, from its carry
+    m, P = m0, P0
+    ms = torch.empty((nc, L, C, bs), **kw)
+    Ps = torch.empty((nc, L, C, bs, bs), **kw)
+    for i in range(L):
+        mp, Pp = _predict(A, At, Q, m, P)
+        fmu, PH, HPH = _observe(H, mp, Pp)
+        m, P = _update(tt[:, i], tn[:, i], fmu, HPH, PH, mp, Pp)
+        ms[:, i] = m
+        Ps[:, i] = P
+    return ms.reshape(nc * L, C, bs)[:T], Ps.reshape(nc * L, C, bs, bs)[:T]
+
+
+def fused_bwd_blocked_plain(ms, Ps, A, Q, pad, chunk=None):
+    """K2 as the kernel computes it, in three passes over chunks of
+    ``chunk`` steps.  Pass 1 runs the smoother step of ``fused_bwd_plain``
+    from a zero carry in every chunk (that gives the affine map's constant
+    part (g, L)) and multiplies the gains up (its linear part E); pass 2
+    carries the state (mn, Pn) down the chunks; pass 3 is the sequential
+    step from each chunk's carry.  One chunk is ``fused_bwd_plain`` itself."""
+    T, C, bs = ms.shape
+    L = chunk or chunk_length(T, C)
+    nc = -(-T // L)
+    if nc == 1:
+        return fused_bwd_plain(ms, Ps, A, Q, pad)
+    At = A.transpose(-1, -2)
+    kw = dict(dtype=A.dtype, device=A.device)
+    Am = (A @ ms[..., None])[..., 0]
+    AP = A @ Ps
+    Pp = AP @ At + Q
+    G = _chol_gain(Pp + torch.diag_embed(pad), AP)
+    padT = nc * L - T  # steps past the end leave every state as it is
+    chunks = lambda x: torch.nn.functional.pad(
+        x, (0, 0) * (x.dim() - 1) + (0, padT)).reshape((nc, L) + x.shape[1:])
+    msc, Psc, Amc, Ppc, Gc = map(chunks, (ms, Ps, Am, Pp, G))
+    live = (torch.arange(nc * L, device=A.device) < T).reshape(nc, L)
+
+    def step(i, mn, Pn, E=None):
+        g, keep = Gc[:, i], ~live[:, i]
+        mn_new = msc[:, i] + (g @ (mn - Amc[:, i])[..., None])[..., 0]
+        Pn_new = Psc[:, i] + g @ (Pn - Ppc[:, i]) @ g.transpose(-1, -2)
+        mn = torch.where(keep[:, None, None], mn, mn_new)
+        Pn = torch.where(keep[:, None, None, None], Pn, Pn_new)
+        if E is None:
+            return mn, Pn
+        return mn, Pn, torch.where(keep[:, None, None, None], E, g @ E)
+
+    # pass 1: totals of all chunks (chunk 0's is never used)
+    g_t = torch.zeros((nc, C, bs), **kw)
+    L_t = torch.zeros((nc, C, bs, bs), **kw)
+    E_t = torch.eye(bs, **kw).expand(nc, C, bs, bs)
+    for i in range(L - 1, -1, -1):
+        g_t, L_t, E_t = step(i, g_t, L_t, E_t)
+    # pass 2: the carry that enters each chunk from above; the last chunk's
+    # makes the last step's smoothed moments equal its filtered ones
+    mn = torch.empty((nc, C, bs), **kw)
+    Pn = torch.empty((nc, C, bs, bs), **kw)
+    mn[nc - 1], Pn[nc - 1] = Am[T - 1], Pp[T - 1]
+    for k in range(nc - 1, 0, -1):
+        mn[k - 1] = (E_t[k] @ mn[k][..., None])[..., 0] + g_t[k]
+        Pn[k - 1] = E_t[k] @ Pn[k] @ E_t[k].transpose(-1, -2) + L_t[k]
+    # pass 3
+    sm = torch.empty((nc, L, C, bs), **kw)
+    sP = torch.empty((nc, L, C, bs, bs), **kw)
+    for i in range(L - 1, -1, -1):
+        mn, Pn = step(i, mn, Pn)
+        sm[:, i] = mn
+        sP[:, i] = Pn
+    return sm.reshape(nc * L, C, bs)[:T], sP.reshape(nc * L, C, bs, bs)[:T]
 
 
 def fused_adf_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant,
@@ -404,8 +589,51 @@ def _check_shapes(name: str, bs: int, T: int, **expected) -> None:
             raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}, expected {shape}")
 
 
-def fused_fwd(ttau, tnu, A, Q, Pinf, H):
-    """K1: forward filter with fixed sites (see ``fused_fwd_plain``)."""
+def blocked_launch_shape(T: int, C: int, chunk=None) -> dict:
+    """How K1 and K2 launch for T steps of C channels: steps a chunk, chunks,
+    (chunk, channel) threads of passes 1 and 3, and launches a pass."""
+    L = chunk or chunk_length(T, C)
+    nc = -(-T // L)
+    return {"chunk": L, "chunks": nc, "threads": nc * C, "passes": 3 if nc > 1 else 1}
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous and on a 16-byte boundary (the kernels move rows of m and
+    P as 16-byte vectors); a view that starts elsewhere is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# Values a (chunk, channel) pair takes in the scratch, by block size: the
+# widths of ``kalman_scratch_values`` in csrc/fused_kalman.cuh.
+_FWD_TOTAL = lambda bs: 3 * bs * bs + 2 * bs  # At, b, Cm, eta, J
+_BWD_TOTAL = lambda bs: 2 * bs * bs + bs  # E, g, L
+_CARRY = lambda bs: bs + bs * bs  # m, P
+
+
+def _scratch(values: int, slots: int, C: int, like: torch.Tensor):
+    """Totals or carries of ``slots`` chunks, laid out (chunk, value, C);
+    None when there is one chunk."""
+    if slots < 1:
+        return None
+    return torch.empty((slots, values, C), dtype=like.dtype, device=like.device)
+
+
+def _by_dtype(lib, entry: str, dtype):
+    """The C entry point of one dtype: ``<entry>_f32`` or ``<entry>_f64``."""
+    return getattr(lib, entry + ("_f64" if dtype == torch.float64 else "_f32"))
+
+
+def _opt_ptr(x) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if x is None else _ptr(x)
+
+
+def fused_fwd(ttau, tnu, A, Q, Pinf, H, *, _chunk=None):
+    """K1: forward filter with fixed sites (see ``fused_fwd_plain``).  On the
+    card: three blocked passes over chunks of ``chunk_length(T, C)`` steps
+    (``fused_fwd_blocked_plain`` is their plain version), one count a call.
+    ``_chunk`` is for the timing tools and the card tests: another chunk
+    length."""
     if _on_cpu(ttau, tnu, A, Q, Pinf, H):
         return fused_fwd_plain(ttau, tnu, A, Q, Pinf, H)
     from nsgp_tpu_torch.ops import _build
@@ -415,18 +643,24 @@ def fused_fwd(ttau, tnu, A, Q, Pinf, H):
     mat = (C, bs, bs)
     _check_shapes("fused_fwd", bs, T, tnu=(tnu, (T, C)), A=(A, mat), Q=(Q, mat),
                   Pinf=(Pinf, mat), H=(H, (C, bs)))
-    args = [x.contiguous() for x in (ttau, tnu, A, Q, Pinf, H)]
+    args = [_aligned(x) for x in (ttau, tnu, A, Q, Pinf, H)]
     ms = torch.empty((T, C, bs), dtype=A.dtype, device=A.device)
     Ps = torch.empty((T, C, bs, bs), dtype=A.dtype, device=A.device)
     lib = _build.library()
-    _launch("fused_fwd", lib.nsgp_fused_fwd, int(A.dtype == torch.float64), bs,
-            *map(_ptr, args), _ptr(ms), _ptr(Ps), T, C, device=A.device)
+    shape = blocked_launch_shape(T, C, _chunk)
+    tot = _scratch(_FWD_TOTAL(bs), shape["chunks"] - 1, C, A)
+    carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
+    _launch("fused_fwd", _by_dtype(lib, "nsgp_fused_fwd", A.dtype), bs, *map(_ptr, args),
+            _ptr(ms), _ptr(Ps), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
+            device=A.device)
     fused_fwd.launches += 1
     return ms, Ps
 
 
-def fused_bwd(ms, Ps, A, Q, pad):
-    """K2: RTS smoother over a filtered trajectory (see ``fused_bwd_plain``)."""
+def fused_bwd(ms, Ps, A, Q, pad, *, _chunk=None):
+    """K2: RTS smoother over a filtered trajectory (see ``fused_bwd_plain``).
+    On the card: three blocked passes (``fused_bwd_blocked_plain``), one
+    count a call; ``_chunk`` as in ``fused_fwd``."""
     if _on_cpu(ms, Ps, A, Q, pad):
         return fused_bwd_plain(ms, Ps, A, Q, pad)
     from nsgp_tpu_torch.ops import _build
@@ -435,12 +669,16 @@ def fused_bwd(ms, Ps, A, Q, pad):
     mat = (C, bs, bs)
     _check_shapes("fused_bwd", bs, T, Ps=(Ps, (T, C, bs, bs)), A=(A, mat), Q=(Q, mat),
                   pad=(pad, (C, bs)))
-    args = [x.contiguous() for x in (ms, Ps, A, Q, pad)]
+    args = [_aligned(x) for x in (ms, Ps, A, Q, pad)]
     sm = torch.empty_like(args[0])
     sP = torch.empty_like(args[1])
     lib = _build.library()
-    _launch("fused_bwd", lib.nsgp_fused_bwd, int(A.dtype == torch.float64), bs,
-            *map(_ptr, args), _ptr(sm), _ptr(sP), T, C, device=A.device)
+    shape = blocked_launch_shape(T, C, _chunk)
+    tot = _scratch(_BWD_TOTAL(bs), shape["chunks"] - 1, C, A)
+    carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
+    _launch("fused_bwd", _by_dtype(lib, "nsgp_fused_bwd", A.dtype), bs, *map(_ptr, args),
+            _ptr(sm), _ptr(sP), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
+            device=A.device)
     fused_bwd.launches += 1
     return sm, sP
 
@@ -485,7 +723,6 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
                   Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
                   wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)))
     lib = _build.library()
-    is_f64 = int(A.dtype == torch.float64)
     _check_adf("fused_adf", lib, C, D, N, S, link, variant)
     args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1))]
     dt_, dev = A.dtype, A.device
@@ -495,8 +732,7 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     tt = torch.empty((T, C), dtype=dt_, device=dev)
     tn = torch.empty((T, C), dtype=dt_, device=dev)
     log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    _launch("fused_adf", lib.nsgp_fused_adf_f64 if is_f64 else lib.nsgp_fused_adf_f32, bs,
-            *map(_ptr, args),
+    _launch("fused_adf", _by_dtype(lib, "nsgp_fused_adf", dt_), bs, *map(_ptr, args),
             float(damp), log_floor, T, D, N, S, int(link == "exp"), int(variant == "sq"),
             _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), device=dev)
     fused_adf.launches += 1
@@ -530,7 +766,6 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
     if BF < 1 or s_chunk < 0:
         raise ValueError(f"fused_adf_mb needs BF >= 1 and s_chunk >= 0, got {BF}, {s_chunk}")
     lib = _lib or _build.library()
-    is_f64 = int(A.dtype == torch.float64)
     _check_adf("fused_adf_mb", lib, C, D, N, S, link, variant)
     args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2)]
     dt_, dev = A.dtype, A.device
@@ -541,8 +776,7 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
     tn = torch.empty((T, BF, C), dtype=dt_, device=dev)
     log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
     cycles = ctypes.c_void_p(None) if _cycles is None else _ptr(_cycles)
-    _launch("fused_adf_mb", lib.nsgp_fused_adf_mb_f64 if is_f64 else lib.nsgp_fused_adf_mb_f32,
-            bs, *map(_ptr, args),
+    _launch("fused_adf_mb", _by_dtype(lib, "nsgp_fused_adf_mb", dt_), bs, *map(_ptr, args),
             float(damp), log_floor, T, BF, D, N, S, int(link == "exp"),
             int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), cycles,
             device=dev)

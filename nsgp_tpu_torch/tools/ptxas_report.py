@@ -19,7 +19,8 @@ import time
 from nsgp_tpu_torch.ops import _build
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-_KERNEL = re.compile(r"(fused_(?:fwd|bwd|adf_mb|adf)_kernel)I([fd])Li(\d+)E")
+_KERNEL = re.compile(r"((?:fused_adf_mb|fused_adf|(?:fwd|bwd)_(?:totals|carry|emit))_kernel)"
+                     r"I([fd])Li(\d+)E")
 
 
 def parse(log: str) -> list:

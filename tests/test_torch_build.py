@@ -21,13 +21,15 @@ def csrc_copy(tmp_path, monkeypatch):
 def test_sources_are_every_cu_file_and_headers_are_not_compiled():
     names = {p.name for p in _build.SOURCES}
     assert names == {p.name for p in _build._CSRC.glob("*.cu")}
-    assert {"fused_kalman.cu", "fused_adf_f32.cu", "fused_adf_f64.cu", "fused_adf_mb_f32.cu",
+    assert {"fused_fwd_f32.cu", "fused_fwd_f64.cu", "fused_bwd_f32.cu",
+            "fused_bwd_f64.cu", "fused_adf_f32.cu", "fused_adf_f64.cu", "fused_adf_mb_f32.cu",
             "fused_adf_mb_f64.cu", "adf_info.cu"} <= names
     assert not any(n.endswith(".cuh") for n in names)
 
 
 @pytest.mark.parametrize("name", ["adf_step.cuh", "nsgp_common.cuh", "fused_adf.cuh",
-                                  "fused_adf_mb.cuh", "fused_kalman.cu", "adf_info.cu"])
+                                  "fused_adf_mb.cuh", "fused_fwd_f32.cu", "adf_info.cu",
+                                  "fused_kalman.cuh", "fused_bwd_f64.cu"])
 def test_library_name_follows_every_file_under_csrc(csrc_copy, name):
     before = _build.library_path()
     with open(csrc_copy / name, "a") as f:

@@ -15,6 +15,11 @@ sigma points, a cluster of eight CTAs a file, also with three files), with
 K = 129 moment totals, with sigma-point counts just below and above the
 cluster threshold and not a multiple of any tile, and K1/K2 at the batched
 paths' channel counts (190, 57).  K3 runs 130 channels (D=126, N=4).
+The blocked passes of K1/K2 are held against the sequential plain versions at
+ragged lengths (one chunk, one step more than a chunk, a short last chunk),
+every block size from 1 to 8, one channel and 190, with runs of zero sites and
+a long gap, for equal bits over two runs, exactly zero padded dims and NaN
+propagation.
 Tolerances relative to the reference's max |value|: 1e-9 in float64 (the
 two differ in summation order and FMA contraction only), 1e-4 in float32
 at these short lengths.
@@ -338,3 +343,156 @@ def test_adf_mb_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="sn2 has shape"):
         fk.fused_adf_mb(yB, maskB.float(), ssmB.A, ssmB.Q, ssmB.Pinf, ssmB.H, pB.W, xi, wn,
                         pB.lik[:1], damp=0.5, link="softplus", variant="sq", z_floor=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 as blocked passes: ragged lengths, every block size class
+# ---------------------------------------------------------------------------
+
+# (T, chunk): None = the wrapper's own chunk_length (32 at these lengths)
+RAGGED = [(1, None), (31, None), (32, None), (33, None), (97, 32), (257, 64), (515, 8)]
+BLOCKS = {2: ("exp", "exp"), 3: ("exp", "matern52"), 4: ("matern32", "matern52"),
+          6: ("matern52", "matern32"), 8: ("matern72", "exp")}
+
+
+def _ssm_leaves(bs, dtype, dev, C=None):
+    """(A, Q, Pinf, H, pad) of a toy model with block size ``bs``.  No kernel
+    pair gives bs = 1, 5 or 7: those are C synthetic stationary channels, a
+    damped rotation A = a R with Pinf = p I, so that Q = p (1 - a^2) I."""
+    if bs in BLOCKS:
+        _, _, ssm, _, _ = _case(*BLOCKS[bs], 3, 2, dtype, dev)
+        return ssm.A, ssm.Q, ssm.Pinf, ssm.H, torch.diagonal(ssm.pad_eye, dim1=-2, dim2=-1)
+    C = C or 5
+    rng = np.random.default_rng(bs)
+    R = np.linalg.qr(rng.normal(size=(C, bs, bs)))[0]
+    a = np.linspace(0.5, 0.99, C)[:, None, None]
+    p = np.linspace(0.5, 2.0, C)[:, None, None]
+    eye = np.broadcast_to(np.eye(bs), (C, bs, bs))
+    leaves = (a * R, p * (1 - a * a) * eye, p * eye, rng.uniform(0.2, 1.0, (C, bs)),
+              np.zeros((C, bs)))
+    return tuple(torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=dev) for x in leaves)
+
+
+def _gappy_sites(steps, C, dtype, dev, seed):
+    """Random sites with scattered zeros, a run of zero rows and one long gap
+    (a third of the signal)."""
+    rng = np.random.default_rng(seed)
+    tt = rng.uniform(0.0, 5.0, (steps, C)) * (rng.uniform(size=(steps, C)) > 0.2)
+    tt[steps // 8: steps // 8 + 5] = 0.0
+    tt[steps // 2: steps // 2 + steps // 3] = 0.0
+    tn = rng.normal(size=(steps, C)) * tt
+    return (torch.tensor(x, dtype=dtype, device=dev) for x in (tt, tn))
+
+
+def _blocked_pair(leaves, steps, chunk, dtype, dev, seed=7):
+    A, Q, Pinf, H, pad = leaves
+    tt, tn = _gappy_sites(steps, H.shape[0], dtype, dev, seed)
+    fwd_args = (tt, tn, A, Q, Pinf, H)
+    ref_f = fk.fused_fwd_plain(*fwd_args)
+    bwd_args = (*ref_f, A, Q, pad)
+    ref_s = fk.fused_bwd_plain(*bwd_args)
+    runs = [(fk.fused_fwd(*fwd_args, _chunk=chunk), fk.fused_bwd(*bwd_args, _chunk=chunk))
+            for _ in range(2)]
+    return runs, (ref_f, ref_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("steps,chunk", RAGGED)
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_blocked_fwd_bwd_match_sequential_plain(cuda, bs, steps, chunk, dtype):
+    leaves = _ssm_leaves(bs, dtype, cuda)
+    pad = leaves[4]
+    runs, refs = _blocked_pair(leaves, steps, chunk, dtype, cuda)
+    for got, ref in zip(runs[0], refs):
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        assert _rel(got, ref) <= TOL[dtype]
+    for a, b in zip(runs[0], runs[1]):  # fixed chunk order, no atomics
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    dead = pad > 0
+    if bool(dead.any()):  # padded state dims stay exactly zero
+        for m, P in runs[0]:
+            assert float(m[:, dead].abs().max()) == 0.0
+            assert float((P * pad[None, :, :, None]).abs().max()) == 0.0
+            assert float((P * pad[None, :, None, :]).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("C", [1, 190])
+def test_blocked_fwd_bwd_one_channel_and_batch_width(cuda, C, dtype):
+    """T = 4096 (64 chunks of 64) with one channel, and with the corpus
+    batch's 190 (warps that straddle chunks, a ragged last block)."""
+    if C == 1:
+        leaves = _ssm_leaves(1, dtype, cuda, C=1)
+    else:
+        from nsgp_tpu_torch.ops.ssm import flatten_files
+
+        model, pB, _, _ = _files(10, 16, 3, dtype, cuda, k1="matern32")
+        flat = flatten_files(model.build_ssm_batch(pB))
+        leaves = (flat.A, flat.Q, flat.Pinf, flat.H,
+                  torch.diagonal(flat.pad_eye, dim1=-2, dim2=-1))
+    assert leaves[3].shape[0] == C
+    assert fk.blocked_launch_shape(4096, C) == {"chunk": 64, "chunks": 64,
+                                                "threads": 64 * C, "passes": 3}
+    runs, refs = _blocked_pair(leaves, 4096, None, dtype, cuda)
+    for got, ref in zip(runs[0], refs):
+        assert _rel(got, ref) <= TOL[dtype]
+    for a, b in zip(runs[0], runs[1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunk", [256, 512])
+@pytest.mark.parametrize("bs", [3, 4])
+def test_blocked_fwd_bwd_at_the_main_paths_chunk_lengths(cuda, bs, chunk, dtype):
+    """The chunk lengths the long signals launch with (256 at T = 53 248 and
+    100 000, 512 beyond), over five chunks and three steps: a total multiplies
+    up the most steps here, which is where float32 has the least room."""
+    leaves = _ssm_leaves(bs, dtype, cuda)
+    steps = 5 * chunk + 3
+    assert fk.blocked_launch_shape(steps, leaves[3].shape[0], chunk)["chunks"] == 6
+    runs, refs = _blocked_pair(leaves, steps, chunk, dtype, cuda)
+    for got, ref in zip(runs[0], refs):
+        assert _rel(got, ref) <= TOL[dtype]
+    for a, b in zip(runs[0], runs[1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_blocked_passes_propagate_nan(cuda):
+    """A NaN site reaches K1's outputs of its own chunk from that step on
+    and of every later chunk; a NaN filtered mean reaches K2's outputs of
+    its own and every earlier chunk; other channels stay finite."""
+    dtype = torch.float64
+    A, Q, Pinf, H, pad = _ssm_leaves(4, dtype, cuda)
+    steps, at, ch = 200, 70, 1
+    tt, tn = _gappy_sites(steps, H.shape[0], dtype, cuda, 11)
+    tt[at, ch], tn[at, ch] = 1.0, float("nan")
+    ms, Ps = fk.fused_fwd(tt, tn, A, Q, Pinf, H, _chunk=32)
+    assert bool(torch.isnan(ms[at:, ch]).all(dim=-1).all())
+    assert bool(torch.isfinite(ms[:at, ch]).all()) and bool(torch.isfinite(ms[:, ch + 1]).all())
+    clean = fk.fused_fwd(tt, tn.nan_to_num(), A, Q, Pinf, H, _chunk=32)
+    bad = clean[0].clone()
+    bad[at, ch, 0] = float("nan")
+    sm, _ = fk.fused_bwd(bad, clean[1], A, Q, pad, _chunk=32)
+    assert bool(torch.isnan(sm[: at + 1, ch]).any(dim=-1).all())
+    assert bool(torch.isfinite(sm[at + 1:, ch]).all()) and bool(torch.isfinite(sm[:, ch + 1]).all())
+
+
+@pytest.mark.cuda
+def test_blocked_passes_take_views_off_a_16_byte_boundary(cuda):
+    """Rows move as 16-byte vectors: a contiguous view that starts 4 bytes
+    into its storage is copied by the wrapper, not handed to the kernel."""
+    A, Q, Pinf, H, pad = _ssm_leaves(4, torch.float32, cuda)
+    C = H.shape[0]
+    tt, tn = _gappy_sites(100, C, torch.float32, cuda, 3)
+    ref = fk.fused_fwd(tt, tn, A, Q, Pinf, H)
+    off = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].reshape(x.shape)
+    assert off(A).data_ptr() % 16 != 0
+    got = fk.fused_fwd(off(tt), off(tn), off(A), off(Q), off(Pinf), off(H))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    sm = fk.fused_bwd(*ref, A, Q, pad)
+    got = fk.fused_bwd(off(ref[0]), off(ref[1]), off(A), off(Q), off(pad))
+    assert all(torch.equal(a, b) for a, b in zip(got, sm))

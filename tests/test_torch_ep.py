@@ -113,8 +113,45 @@ def test_fused_backend_matches_jax_pallas(case):
 def test_unported_config_fields_raise(field, value):
     model, params = _port(*_toy(D=2, N=1))
     y = torch.zeros(8, dtype=torch.float64)
+    kw = {field: value}
+    if field == "parallel":  # ported with chunk > 0; the one-level scan (chunk = 0) is not
+        kw["chunk"] = 0
     with pytest.raises(NotImplementedError, match=field):
-        tep.ep_infer(model, params, y, None, tep.EPConfig(**{field: value}), device="cpu")
+        tep.ep_infer(model, params, y, None, tep.EPConfig(**kw), device="cpu")
+
+
+def test_parallel_is_refused_on_the_fused_backend():
+    model, params = _port(*_toy(D=2, N=1))
+    y = torch.zeros(8, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        tep.ep_infer(model, params, y, None, tep.EPConfig(parallel=True, backend="fused"),
+                     device="cpu")
+
+
+def test_parallel_blocked_matches_jax_parallel():
+    """``EPConfig(parallel=True, chunk=16)`` on ``backend="seq"`` (sweep 1
+    sequential ADF, then the blocked scans of ``ops.bscan`` and the all-T
+    re-site) against the JAX package's parallel path: the golden toy model
+    and the first 520 samples of its signal (not a multiple of the chunk)."""
+    sys.path.insert(0, ROOT)
+    from scripts.make_golden import D, N, SEED
+
+    y = np.load(GOLDEN)["y"][:520]
+    jm = JModel(D=D, N=N, kernel1="matern32", kernel2="matern52", p_cubature=9)
+    jp = JParams(lik=jnp.asarray(1e-3), sub_var=jnp.ones((D,)),
+                 sub_len=jnp.linspace(40.0, 120.0, D), omega=jnp.linspace(0.1, 2.2, D),
+                 mod_var=jnp.full((N,), 2.0), mod_len=jnp.linspace(200.0, 400.0, N),
+                 W=jax.random.uniform(jax.random.PRNGKey(SEED), (D, N), minval=0.1,
+                                      maxval=1.0))
+    r_j = jep.ep_infer(jm, jp, jnp.asarray(y), None,
+                       jep.EPConfig(ep_itts=3, parallel=True, chunk=16))
+    model, params = _port(jm, jp)
+    r_t = tep.ep_infer(model, params, torch.tensor(y), None,
+                       tep.EPConfig(ep_itts=3, parallel=True, chunk=16), device="cpu")
+    for f in ("Eft", "Varft", "lZ", "ms", "Ps"):
+        np.testing.assert_allclose(_np(getattr(r_t, f)), np.asarray(getattr(r_j, f)),
+                                   rtol=1e-7, atol=1e-9, err_msg=f)
+    np.testing.assert_allclose(_np(r_t.nlZ), np.asarray(r_j.nlZ), rtol=1e-9)
 
 
 def test_backend_and_device_are_checked():

@@ -23,7 +23,8 @@ from nsgp_tpu_torch.inference import batched, registry
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models import mixture
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior, stack_params
-from nsgp_tpu_torch.ops import _build, cubature, fused_kalman, kalman, kernels, moments, ssm
+from nsgp_tpu_torch.ops import (_build, bscan, cubature, fused_kalman, kalman, kernels, moments,
+                                pscan, ssm)
 from nsgp_tpu_torch.utils import device, metrics, precision
 
 model, params = convert.load_trained(
@@ -32,6 +33,14 @@ y, _, _ = sample_prior(torch.Generator().manual_seed(0), model, params, 64)
 for backend in ("seq", "fused"):
     r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, backend=backend), device="cpu")
     assert torch.isfinite(r.nlZ).all()
+r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, parallel=True, chunk=16), device="cpu")
+assert torch.isfinite(r.nlZ).all()
+ssm_ = model.build_ssm(params)
+tt = torch.rand(40, ssm_.num_channels, dtype=torch.float64)
+blocked = fused_kalman.fused_fwd_blocked_plain(tt, tt, ssm_.A, ssm_.Q, ssm_.Pinf, ssm_.H, chunk=16)
+filtered = bscan.blocked_filter_with_sites(ssm_, kalman.Sites(tt, tt), 16)
+assert torch.allclose(blocked[0].reshape(40, -1), filtered[0], atol=1e-9)
+assert torch.isfinite(blocked[0]).all()
 mask = missing_data.make_gap_mask(64, [(20, 8)])
 paramsB = stack_params([params, params])
 g = missing_data.fill_gaps_batch(model, paramsB, torch.stack([y, y]), torch.stack([mask, mask]),
