@@ -136,5 +136,8 @@ def infer_batch(engine: str, model, paramsB, yB, maskB=None, config=None, device
     from nsgp_tpu_torch.inference import registry
 
     _, _, config_cls = registry.get_engine("ihgp" if engine.startswith("ihgp") else engine)
+    if engine == "giekf":
+        raise NotImplementedError("batched GIEKF is not ported yet: ROADMAP Queue 1 item 10 "
+                                  "(giekf_infer_batch)")
     cfg = config if config is not None else config_cls(**cfg_kwargs)
     return ep_infer_batch(model, paramsB, yB, maskB, cfg, device=device)

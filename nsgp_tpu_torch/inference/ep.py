@@ -25,8 +25,12 @@ Two backends:
   kernel launch; on CPU tensors the same passes run as their plain torch
   versions.
 
-Placement follows ``utils.device``: ``ep_infer`` moves its inputs to the card
-unless the caller passes ``device="cpu"``; without a card the default raises.
+``ep_energy`` is the energy mode: the sequential engine whatever the backend,
+differentiable by autograd with respect to every ``GTNMFParams`` leaf.
+
+Placement follows ``utils.device``: ``ep_infer`` and ``ep_energy`` move their
+inputs to the card unless the caller passes ``device="cpu"``; without a card
+the default raises.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
-from nsgp_tpu_torch.utils.device import resolve_device
+from nsgp_tpu_torch.utils.device import place_inputs
 from nsgp_tpu_torch.utils.precision import full_fp32
 
 BACKENDS = ("seq", "fused")
@@ -180,13 +184,9 @@ def ep_infer(
     """
     _check_config(config)
     full_fp32()
-    dev = resolve_device(device)
-    params = params.on(dev)
-    y = y.to(dev)
-    mask = ~torch.isnan(y) if mask is None else mask.to(dev, torch.bool)
+    dev, params, y, mask = place_inputs(params, y, mask, device)
     ssm = model.build_ssm(params)
     dtype = ssm.A.dtype
-    y = torch.nan_to_num(y).to(dtype)
     T = y.shape[0]
     C = ssm.num_channels
     sites = kalman.init_sites(T, C, dtype, dev)
@@ -257,3 +257,50 @@ def ep_infer(
 
     return EPResult(Eft=mu, Varft=var, lZ=lZ_final, sites=sites, nlZ=nlZ,
                     ms=ms, Ps=Ps, maxdiff=maxdiff)
+
+
+def ep_energy(
+    model: GTNMFModel,
+    params: GTNMFParams,
+    y: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    config: EPConfig = EPConfig(),
+    device=None,  # None = the card; "cpu" runs the plain versions
+) -> torch.Tensor:
+    """Negative log marginal likelihood (energy mode, xt=[] in the ref).
+
+    nlml = -sum_k lZ_k from the final EP moment evaluation
+    (gf_ep_modulator_nmf.m:355-533).  A 0-d tensor whose graph reaches every
+    leaf of ``params``: differentiable by autograd, which the reference lacks
+    (it returns zero gradients and relies on fminunc finite differences).
+    Always the sequential engine, whatever ``config.backend`` says, with the
+    reference's last-site bookkeeping: re-sites at ``config.damp(itt)``, the
+    last step never re-sited backward, and later forward passes re-matching
+    only the last site.
+    """
+    _check_config(config)
+    full_fp32()
+    dev, params, y, mask = place_inputs(params, y, mask, device)
+    ssm = model.build_ssm(params)
+    dtype = ssm.A.dtype
+    T = y.shape[0]
+    sites = kalman.init_sites(T, ssm.num_channels, dtype, dev)
+    mom_fn = _mom_point(model, params)
+
+    # Sweep 1: ADF; this is the lZ if ep_itts == 1.
+    fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(0),
+                                      match_mask=None, store=config.ep_itts > 1)
+    lZ_last = lZ[-1]  # forward-pass lZ at the final step (ref :413)
+    last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
+    last_only[-1] = True
+    for itt in range(1, config.ep_itts):
+        ms, Ps = kalman.rts_smoother(ssm, fr)
+        mu, var = kalman.observable_marginals(ssm, ms, Ps)
+        sites, lZ = _ep_resite(model, params, config, y, mask, mu, var, sites,
+                               config.damp(itt), exclude_last=True)
+        lZ = torch.cat([lZ[:-1], lZ_last[None]])
+        if itt < config.ep_itts - 1:
+            fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(itt),
+                                                  match_mask=last_only, store=True)
+            lZ_last = lZ_fwd[-1]
+    return -torch.sum(lZ)

@@ -1,28 +1,33 @@
 """Engine registry: one dispatch point for the inference engines.
 
 Port of ``nsgp_tpu/inference/registry.py``.  Applications select an engine
-by name.  Only ``"ep"`` is ported; ``"ihgp"`` (ROADMAP Queue 1 item 12) and
-``"giekf"`` (item 13) raise ``NotImplementedError``.  ``energy`` waits for
-``ep_energy`` (item 8).
+by name.  ``"ep"`` and ``"giekf"`` are ported; ``"ihgp"`` (ROADMAP Queue 1
+item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 ENGINES = ("ep", "ihgp", "giekf")
-_UNPORTED = {"ihgp": "ROADMAP Queue 1 item 12 (ops/dare.py, inference/ihgp.py)",
-             "giekf": "ROADMAP Queue 1 item 13 (inference/giekf.py)"}
+_UNPORTED = {"ihgp": "ROADMAP Queue 1 item 12 (ops/dare.py, inference/ihgp.py, ihgp_energy)"}
 
 
 def get_engine(name: str):
-    """Returns (infer_fn, energy_fn, config_cls) for an engine name;
-    ``energy_fn`` is None until the engine's energy is ported."""
+    """Returns (infer_fn, energy_fn, config_cls) for an engine name."""
     if name == "ep":
         from nsgp_tpu_torch.inference import ep
 
-        return ep.ep_infer, None, ep.EPConfig
+        return ep.ep_infer, ep.ep_energy, ep.EPConfig
+    if name == "giekf":
+        from nsgp_tpu_torch.inference import giekf
+
+        return giekf.giekf_infer, giekf.giekf_energy, giekf.GIEKFConfig
     if name in _UNPORTED:
         raise NotImplementedError(f"engine {name!r} is not ported yet: {_UNPORTED[name]}")
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")
+
+
+def _config(config_cls, config, cfg_kwargs):
+    return config if config is not None else config_cls(**cfg_kwargs)
 
 
 def infer(engine: str, model, params, y, mask=None, config=None, device=None, **cfg_kwargs):
@@ -30,7 +35,15 @@ def infer(engine: str, model, params, y, mask=None, config=None, device=None, **
 
     ``config`` takes precedence; otherwise a config is built from
     ``cfg_kwargs`` (empty = engine defaults).  Returns the engine's result
-    (all carry .Eft / .Varft / .nlZ / .sites)."""
+    (all carry .Eft / .Varft)."""
     infer_fn, _, config_cls = get_engine(engine)
-    cfg = config if config is not None else config_cls(**cfg_kwargs)
-    return infer_fn(model, params, y, mask, cfg, device=device)
+    return infer_fn(model, params, y, mask, _config(config_cls, config, cfg_kwargs),
+                    device=device)
+
+
+def energy(engine: str, model, params, y, mask=None, config=None, device=None, **cfg_kwargs):
+    """Marginal-likelihood energy of the named engine (autograd-ready), with
+    the config rule of ``infer``."""
+    _, energy_fn, config_cls = get_engine(engine)
+    return energy_fn(model, params, y, mask, _config(config_cls, config, cfg_kwargs),
+                     device=device)

@@ -72,11 +72,16 @@ def marginals(ssm: BlockSSM, m, P):
 
 def site_update(ssm: BlockSSM, m, P, ttau_k, tnu_k):
     """Branch-free EP measurement update for all channels at one step."""
-    fmu, PH, HPH = marginals(ssm, m, P)
+    return _update(m, P, *marginals(ssm, m, P), ttau_k, tnu_k)
+
+
+def _update(m, P, fmu, PH, HPH, ttau_k, tnu_k):
+    """``site_update`` given the marginals of (m, P)."""
     z = ttau_k * HPH + 1.0
     v = (ttau_k * fmu - tnu_k) / z
     m = m - PH * v[:, None]
-    P = P - (ttau_k / z)[:, None, None] * PH[:, None, :] * PH[:, :, None]
+    kPH = (ttau_k / z)[:, None] * PH
+    P = P - kPH[:, None, :] * PH[:, :, None]
     return m, _sym(P)
 
 
@@ -86,7 +91,7 @@ def moment_match(lZk, dlZ, d2lZ, fmu, fs2, ttau, tnu, damp, frac=1.0):
     Ref gf_ep_modulator_nmf.m:147-151.  Returns clamped (ttau >= 0) sites.
     """
     denom = 1.0 + d2lZ * fs2
-    ttau_new = (1.0 - damp * frac) * ttau + damp * (-d2lZ / denom)
+    ttau_new = (1.0 - damp * frac) * ttau + (-damp) * (d2lZ / denom)
     tnu_new = (1.0 - damp * frac) * tnu + damp * ((dlZ - fmu * d2lZ) / denom)
     return torch.clamp_min(ttau_new, 0.0), tnu_new
 
@@ -167,14 +172,15 @@ def rts_smoother(ssm: BlockSSM, traj: PackedTrajectory, jitter: float = 0.0):
     A = ssm.A
     T = traj.ms.shape[0]
     Gs, Pps = smoother_gains_chunked(ssm, traj.Ps[:-1], jitter)
-    m = traj.ms[-1].reshape(C, bs)
-    P = traj.Ps[-1].reshape(C, bs, bs)
+    # rows by unbind: one autograd node a pass, not a (T, ...) zero fill a step
+    ms_f = traj.ms.reshape(T, C, bs).unbind(0)
+    Ps_f = traj.Ps.reshape(T, C, bs, bs).unbind(0)
+    Gs = Gs.reshape(T - 1, C, bs, bs).unbind(0)
+    Pps = Pps.reshape(T - 1, C, bs, bs).unbind(0)
+    m, P = ms_f[-1], Ps_f[-1]
     ms, Ps = [traj.ms[-1]], [traj.Ps[-1]]
     for k in range(T - 2, -1, -1):
-        ms_k = traj.ms[k].reshape(C, bs)
-        Ps_k = traj.Ps[k].reshape(C, bs, bs)
-        G = Gs[k].reshape(C, bs, bs)
-        Pp1 = Pps[k].reshape(C, bs, bs)
+        ms_k, Ps_k, G, Pp1 = ms_f[k], Ps_f[k], Gs[k], Pps[k]
         m = ms_k + _mv(G, m - _mv(A, ms_k))
         P = _sym(Ps_k + G @ (P - Pp1) @ G.transpose(-1, -2))
         ms.append(m.reshape(-1))
@@ -219,22 +225,23 @@ def adf_filter(
     m = torch.zeros_like(ssm.H)
     P = ssm.Pinf
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    # rows by unbind: one autograd node a pass, not a (T, C) zero fill a step
+    ys, ttaus, tnus = y.unbind(0), sites.ttau.unbind(0), sites.tnu.unbind(0)
     ms, Ps, lZs, tts, tns = [], [], [], [], []
     for k in range(T):
         if k > 0:
             m, P = predict(ssm, m, P)
         fmu, PH, HPH = marginals(ssm, m, P)
         if do_match[k]:
-            lZk, dlZ, d2lZ = mom_fn(y[k], fmu, HPH, 1.0)
-            tt, tn = moment_match(lZk, dlZ, d2lZ, fmu, HPH, sites.ttau[k],
-                                  sites.tnu[k], damp, 1.0)
+            lZk, dlZ, d2lZ = mom_fn(ys[k], fmu, HPH, 1.0)
+            tt, tn = moment_match(lZk, dlZ, d2lZ, fmu, HPH, ttaus[k], tnus[k], damp, 1.0)
         else:
-            lZk, tt, tn = zero, torch.clamp_min(sites.ttau[k], 0.0), sites.tnu[k]
+            lZk, tt, tn = zero, torch.clamp_min(ttaus[k], 0.0), tnus[k]
         # Masked (unobserved) steps: zero sites => update is a no-op.
         if obs[k]:
-            m, P = site_update(ssm, m, P, tt, tn)
+            m, P = _update(m, P, fmu, PH, HPH, tt, tn)
         else:
-            m, P = site_update(ssm, m, P, torch.zeros_like(tt), torch.zeros_like(tn))
+            m, P = _update(m, P, fmu, PH, HPH, torch.zeros_like(tt), torch.zeros_like(tn))
         if store:
             ms.append(m.reshape(-1))
             Ps.append(P.reshape(-1))

@@ -23,6 +23,7 @@ device, as the JAX package leaves it to XLA outside Pallas.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -57,8 +58,16 @@ class MomentParams(NamedTuple):
 
 
 def sigma_points(mp: MomentParams, dtype=torch.float64, device=None):
-    """Unit sigma points: weights (S,), points (S, N)."""
-    w, x = cubature.unit_sigma_points(mp.p_cubature, mp.N, mp.method)
+    """Unit sigma points: weights (S,), points (S, N).
+
+    Built once per rule, dtype and device and then shared by every caller
+    (the sequential engine asks once a step): read them, never write them."""
+    return _unit_points(mp.p_cubature, mp.N, mp.method, dtype, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=32)
+def _unit_points(p: int, n: int, method: str, dtype, device):
+    w, x = cubature.unit_sigma_points(p, n, method)
     return (torch.as_tensor(w, dtype=dtype, device=device),
             torch.as_tensor(x.T, dtype=dtype, device=device))
 
@@ -79,62 +88,72 @@ def moments(
     likModulatorPreCalcwn.m:44-79 ('sq').
     """
     D = mp.D
-    link = LINKS[mp.link]
     dtype = mu.dtype
     wn, xi = sigma_points(mp, dtype, mu.device)  # (S,), (S, N)
 
-    mu_z, mu_g = mu[..., :D], mu[..., D:]
-    s2_z, s2_g = s2[..., :D], s2[..., D:]
+    mu_z, mu_g = mu.split([D, mp.N], dim=-1)
+    s2_z, s2_g = s2.split([D, mp.N], dim=-1)
+    mu_g = mu_g[..., None, :]
+    s2_g = s2_g[..., None, :]
 
-    xn = mu_g[..., None, :] + torch.sqrt(s2_g)[..., None, :] * xi  # (..., S, N)
-    a = link(xn) @ W.T  # (..., S, D)
+    xn = mu_g + torch.sqrt(s2_g) * xi  # (..., S, N)
+    a = LINKS[mp.link](xn) @ W.T  # (..., S, D)
     if mp.variant == "sq":
         a = torch.sqrt(a)
+    a2 = a * a
 
-    s2_eff = sn2 / ep_fraction + torch.einsum("...sd,...d->...s", a * a, s2_z)
-    mean = torch.einsum("...sd,...d->...s", a, mu_z)
-    resid = y[..., None] - mean
+    # x / 1.0 is x: the sequential engine's fraction 1 costs no op
+    s2_eff = _matvec(a2, s2_z) + (sn2 if ep_fraction == 1.0 else sn2 / ep_fraction)
+    resid = y[..., None] - _matvec(a, mu_z)
     # Max-shifted sums: weights may be negative (ut7/ut9), so no logsumexp;
     # every derivative below is a ratio in which the exp(lmax) scale cancels.
+    # The shift carries no gradient, as in the JAX package: the two agree
+    # only while it cancels, which it does not where Z0 is clamped below.
     log_norm = -0.5 * (resid * resid / s2_eff + torch.log(s2_eff) + _LOG2PI)
-    lmax = torch.amax(log_norm, dim=-1, keepdim=True)
+    lmax = torch.amax(log_norm, dim=-1, keepdim=True).detach()
     # all -inf (every sigma point underflowed): exp(-inf - -inf) would be NaN
-    lmax = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
-    norm = torch.exp(log_norm - lmax)
-
-    if mp.use_pep_const:
-        pep_const = (2.0 * math.pi * sn2) ** (0.5 * (1.0 - ep_fraction)) * ep_fraction ** (-0.5)
-        log_pep = torch.log(torch.as_tensor(pep_const, dtype=dtype, device=mu.device))
-    else:
-        log_pep = 0.0
+    lmax = torch.nan_to_num(lmax, nan=0.0, posinf=0.0, neginf=0.0)
+    wnorm = wn * torch.exp(log_norm - lmax)  # (..., S)
 
     # Raw-scale floor Z >= z_floor exactly as the reference (max on the raw
     # sum, likModulatorNMFPower.m:55); the floored Z also feeds Zinv.
-    tiny = torch.finfo(dtype).tiny
-    Z0 = torch.clamp_min(torch.einsum("s,...s->...", wn, norm), tiny)
+    Z0 = torch.clamp_min(wnorm.sum(-1), torch.finfo(dtype).tiny)
     lZ_raw = lmax[..., 0] + torch.log(Z0)
-    log_floor = float(torch.log(torch.tensor(mp.z_floor, dtype=dtype)))
-    lZ_floor = torch.clamp_min(lZ_raw, log_floor)
-    lZ = log_pep + lZ_floor
-    Zinv = torch.exp(lZ_raw - lZ_floor) / Z0
+    lZ = torch.clamp_min(lZ_raw, _log_floor(mp.z_floor, dtype))
+    Zinv = (torch.exp(lZ_raw - lZ) / Z0)[..., None]
+    if mp.use_pep_const:
+        pep_const = (2.0 * math.pi * sn2) ** (0.5 * (1.0 - ep_fraction)) * ep_fraction ** (-0.5)
+        lZ = lZ + torch.log(torch.as_tensor(pep_const, dtype=dtype, device=mu.device))
 
-    # --- first derivatives w.r.t. cavity means -----------------------------
+    # --- derivatives w.r.t. the cavity means, first and second ---------------
+    # z: sum_s w_s norm_s rs_s a_s and sum_s w_s norm_s (rs_s^2 - 1/s2eff_s) a_s^2
     rs = resid / s2_eff  # (..., S)
-    dlZ_z = Zinv[..., None] * torch.einsum("s,...sd->...d", wn, a * (rs * norm)[..., None])
-
-    dmu_g = (xn - mu_g[..., None, :]) / s2_g[..., None, :]  # (..., S, N)
-    dlZ_g = Zinv[..., None] * torch.einsum("s,...sn->...n", wn, dmu_g * norm[..., None])
-
-    # --- second derivatives -------------------------------------------------
-    d2_int_z = (a * a) * ((rs * rs) - 1.0 / s2_eff)[..., None] * norm[..., None]
-    d2lZ_z = -dlZ_z * dlZ_z + Zinv[..., None] * torch.einsum("s,...sd->...d", wn, d2_int_z)
-
-    d2_int_g = (dmu_g * dmu_g - 1.0 / s2_g[..., None, :]) * norm[..., None]
-    d2lZ_g = -dlZ_g * dlZ_g + Zinv[..., None] * torch.einsum("s,...sn->...n", wn, d2_int_g)
-
+    dlZ_z = Zinv * _vecmat(wnorm * rs, a)
+    d2lZ_z = Zinv * _vecmat(wnorm * (rs * rs - torch.reciprocal(s2_eff)), a2) - dlZ_z * dlZ_z
+    # g: one weighted sum over [dmu_g, dmu_g^2 - 1/s2_g]
+    dmu_g = (xn - mu_g) / s2_g  # (..., S, N)
+    g_terms = torch.cat([dmu_g, dmu_g * dmu_g - torch.reciprocal(s2_g)], dim=-1)
+    g_sums = Zinv * _vecmat(wnorm, g_terms)
+    dlZ_g, d2_g = g_sums.chunk(2, dim=-1)
     dlZ = torch.cat([dlZ_z, dlZ_g], dim=-1)
-    d2lZ = torch.cat([d2lZ_z, d2lZ_g], dim=-1)
+    d2lZ = torch.cat([d2lZ_z, d2_g - dlZ_g * dlZ_g], dim=-1)
     return lZ, dlZ, d2lZ
+
+
+def _matvec(M, v):
+    """(..., S, K) x (..., K) -> (..., S); one op for a single site (the
+    sequential engine calls once a step)."""
+    return M @ v if v.dim() == 1 else (M @ v[..., None])[..., 0]
+
+
+def _vecmat(v, M):
+    """sum over S: (..., S) x (..., S, K) -> (..., K)."""
+    return v @ M if v.dim() == 1 else (v[..., None, :] @ M)[..., 0, :]
+
+
+@functools.lru_cache(maxsize=8)
+def _log_floor(z_floor: float, dtype) -> float:
+    return float(torch.log(torch.tensor(z_floor, dtype=dtype)))
 
 
 def moments_chunked(

@@ -20,3 +20,14 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def place_inputs(params, y: torch.Tensor, mask, device=None):
+    """One signal's inputs on the device asked for (``resolve_device``):
+    (device, params there, y there with NaNs zeroed in the parameters'
+    dtype, mask there, default ~isnan(y))."""
+    dev = resolve_device(device)
+    params = params.on(dev)
+    y = y.to(dev)
+    mask = ~torch.isnan(y) if mask is None else mask.to(dev, torch.bool)
+    return dev, params, torch.nan_to_num(y).to(params.sub_var.dtype), mask

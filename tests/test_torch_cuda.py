@@ -496,3 +496,73 @@ def test_blocked_passes_take_views_off_a_16_byte_boundary(cuda):
     sm = fk.fused_bwd(*ref, A, Q, pad)
     got = fk.fused_bwd(off(ref[0]), off(ref[1]), off(A), off(Q), off(pad))
     assert all(torch.equal(a, b) for a, b in zip(got, sm))
+
+
+# ---------------------------------------------------------------------------
+# The training path on the card: autograd through the sequential engine (no
+# kernel of its own), held against the same code on the CPU at float64.
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-9
+
+
+def _train_case(dtype=torch.float64, variant="sq", T_=48):
+    rng = np.random.default_rng(5)
+    model = GTNMFModel(D=3, N=2, kernel1="exp", kernel2="matern52", variant=variant,
+                       p_cubature=7)
+    params = GTNMFParams(
+        lik=np.float64(1e-2), sub_var=np.full(3, 0.5), sub_len=np.linspace(40.0, 120.0, 3),
+        omega=np.linspace(0.2, 1.4, 3), mod_var=np.full(2, 2.0),
+        mod_len=np.linspace(150.0, 300.0, 2), W=rng.uniform(0.2, 1.0, (3, 2))).to(dtype=dtype)
+    y, _, _ = sample_prior(torch.Generator().manual_seed(2), model, params, T_)
+    return model, params, y
+
+
+def _grads(energy, params, dev):
+    from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES
+
+    leaves = {k: getattr(params, k).detach().to(dev).requires_grad_(True) for k in PARAM_NAMES}
+    e = energy(GTNMFParams(**leaves), dev)
+    return [e, *torch.autograd.grad(e, list(leaves.values()))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itts", [1, 3])
+def test_ep_energy_gradient_card_matches_cpu(cuda, itts):
+    from nsgp_tpu_torch.inference.ep import EPConfig, ep_energy
+
+    model, params, y = _train_case()
+    y[20:26] = float("nan")
+    energy = lambda p, dev: ep_energy(model, p, y, None, EPConfig(ep_itts=itts), device=dev)
+    card = _grads(energy, params, cuda)
+    assert card[0].device.type == "cuda"
+    assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+def test_fit_two_steps_card_matches_cpu(cuda):
+    from nsgp_tpu_torch.inference.learn import fit_hyperparams
+
+    model, params, y = _train_case()
+    specs = {"lik": "fixed", "sub_var": "fixed", "omega": "fixed", "sub_len": (20.0, 400.0),
+             "mod_var": (1.0, 10.0), "mod_len": (50.0, 800.0), "W": (0.0, 1.5)}
+    fit = lambda dev: fit_hyperparams(model, params, y, specs=specs, steps=2,
+                                      learning_rate=1e-2, device=dev, ep_itts=1)
+    card, cpu = fit(None), fit("cpu")
+    assert card.energies.device.type == "cuda" and card.energies.shape == (2,)
+    assert _rel([card.energies.cpu(), *(x.cpu() for x in card.params.leaves())],
+                [cpu.energies, *cpu.params.leaves()]) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+def test_giekf_energy_gradient_card_matches_cpu(cuda):
+    from nsgp_tpu_torch.inference.giekf import GIEKFConfig, giekf_energy, giekf_infer
+
+    model, params, y = _train_case(variant="amp")
+    energy = lambda p, dev: giekf_energy(model, p, y, None, device=dev)
+    assert _rel([x.cpu() for x in _grads(energy, params, cuda)],
+                _grads(energy, params, "cpu")) <= TRAIN_TOL
+    cfg = GIEKFConfig(g_iter=2, l_iter=3)
+    card, cpu = (giekf_infer(model, params, y, None, cfg, device=d) for d in (None, "cpu"))
+    assert _rel([card.Eft.cpu(), card.Varft.cpu(), card.nll.cpu()],
+                [cpu.Eft, cpu.Varft, cpu.nll]) <= TRAIN_TOL

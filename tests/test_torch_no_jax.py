@@ -19,7 +19,7 @@ import torch
 import nsgp_tpu_torch
 from nsgp_tpu_torch import convert
 from nsgp_tpu_torch.apps import missing_data, source_sep
-from nsgp_tpu_torch.inference import batched, registry
+from nsgp_tpu_torch.inference import batched, giekf, hmc, learn, registry
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models import mixture
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior, stack_params
@@ -53,6 +53,18 @@ jm, jp, sl = mixture.join_models(models, plist, lik=1e-4)
 assert (jm.D, jm.N) == (32, 6) and len(sl.sub) == 2
 r = registry.infer("ep", model, params, y[:16], None, device="cpu", ep_itts=1)
 assert torch.isfinite(metrics.rmse(r.Eft, torch.zeros_like(r.Eft))).all()
+specs = {"lik": "fixed", "sub_var": "fixed", "omega": "fixed"}
+fit = learn.fit_hyperparams(model, params, y[:12], specs=specs, steps=2, device="cpu")
+assert fit.energies.shape == (2,) and torch.isfinite(fit.energies).all()
+lp = hmc.make_log_post(learn.make_energy_fn(model, y[:8], device="cpu"), learn.Transform(specs),
+                       params)
+u0 = learn.Transform(specs).to_unconstrained(params)
+h = hmc.hmc_sample(torch.Generator().manual_seed(0), lp, u0, hmc.HMCConfig(1, 1, 2), n_chains=1)
+v = hmc.vi_fit(torch.Generator().manual_seed(0), lp, u0, steps=1, n_mc=1)
+assert torch.isfinite(h.samples).all() and torch.isfinite(v.elbo_trace).all()
+e = registry.energy("giekf", model, params, y[:12], device="cpu")
+assert torch.isfinite(e) and torch.isfinite(giekf.giekf_infer(model, params, y[:12], None,
+                                                             device="cpu").Eft).all()
 try:
     device.resolve_device(None)
     assert torch.cuda.is_available()
