@@ -51,6 +51,27 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    at the path's own shape (T=16 000, C=57) and chunk length as in phase 5;
    the same call at T=2048 in float64 on the card against the CPU.
 
+7. the training path (``training_phase``): gradients and a fit card vs CPU at
+   float64, one value and gradient at T=16 000 float32, a 3-step fit then a
+   gap fill on the fused path, HMC/VI, GIEKF; its line ``{"training": ...}``.
+8. the IHGP path (``ihgp_phase``, plain torch: no kernel of its own, as JAX's
+   IHGP reaches no Pallas kernel) at the headline model: (a) the DARE bank
+   card vs CPU at float64 at the default grid and at ``grid_lo=-7`` (every
+   table field, the failed coarse points per channel), its time in float32;
+   (b) ``ihgp_infer`` at T=1024 float64 card vs CPU in the sequential,
+   blocked (chunk 256) and one-level forms, grid indices equal;
+   ``ihgp_energy`` and its gradient over every leaf; ``ep_infer`` on
+   ``backend="seq"`` with the one-level scans, with and without ``jitter``;
+   (c) float32 at T=16 000: ``ihgp_energy`` (us a step of sweep 1, its gap
+   to float64), ``ihgp-seq`` and ``ihgp-blocked`` (bench.py:222-228);
+   (d) ``ihgp-blocked`` at T=100 000 (50 000 if (c) predicts sweep 1 over
+   150 s there), s/sweep; (e) ``separate()`` with its default engine at
+   mixture width (T=2048 float32; T=256 float64 card vs CPU) and
+   ``infer_batch("ihgp")`` over three corpus models (T=4096), its last file
+   against the single-file engine; the launch counters read 0 for K1-K4
+   over 8c-8e.
+   Its line ``{"ihgp": ...}`` follows the training line.
+
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path, max abs error vs plain, its time at the path's shape beside the
 plain version's and the least time the card could take (``bound_ms``); K1 and
@@ -132,6 +153,23 @@ HMC_SPECS = {"lik": (1e-4, 0.1), "sub_var": "fixed", "sub_len": "fixed", "omega"
              "mod_var": (0.5, 8.0), "mod_len": (50.0, 800.0), "W": "fixed"}
 # Card vs CPU at float64 through the same code: summation order only.
 TOL_TRAIN = 1e-8
+
+# The IHGP path (phase 8): bench.py:222-228's two configs at the headline
+# model; card vs CPU at float64 at T = 1024 (the EP one-level path at 256);
+# float32 at the training length and at the headline length, the latter cut
+# to 50 000 when sweep 1's measured us a step predicts over 150 s there; the
+# mixture's IHGP settings (experiments/source_sep.py:110-114) and the corpus
+# experiment's IHGP arm (experiments/missing_data.py:82-98, 20 sweeps cut to 3).
+IH_SEQ = dict(ep_itts=3, damping=(0.1,), moment_chunk=8192)
+IH_BLOCKED = dict(IH_SEQ, parallel=True, chunk=2048)
+IH_MIX_KW = dict(grid_lo=-7.0, parallel=True, chunk=2048, ep_itts=3, damping=(0.025,),
+                 ep_fraction=0.75)
+IH_CORPUS_KW = dict(ep_itts=3, ep_fraction=0.75, damping=(0.1, 0.025), grid_lo=-7.0,
+                    parallel=True, chunk=2048, keep_best=True)
+T_IH_PARITY, T_IH_EP, T_IH_TRAIN, T_IH_CUT = 1024, 256, 16_000, 50_000
+T_IH_MIX, T_IH_MIX_F64, T_IH_BATCH, BF_IH = 2048, 256, 4096, 3
+IH_SWEEP1_LIMIT_S = 150.0
+TOL_IH_GRAD = 1e-9
 
 # Kernel vs plain, relative to the reference output's max |value|.
 # float64: the two differ only in summation order and FMA contraction
@@ -814,6 +852,189 @@ def training_phase(smi, dev):
     return out
 
 
+def ihgp_phase(smi, dev):
+    """Phase 8: the IHGP path on the card ``dev`` (plain torch: it reaches no
+    kernel of the port, as JAX's reaches no Pallas kernel).  Returns the
+    numbers of the ``ihgp`` line."""
+    import torch
+
+    from nsgp_tpu_torch.apps.source_sep import separate
+    from nsgp_tpu_torch.convert import load_trained_batch
+    from nsgp_tpu_torch.inference import ihgp
+    from nsgp_tpu_torch.inference.batched import infer_batch
+    from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+    from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFParams
+    from nsgp_tpu_torch.ops import dare
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    cfg_seq, cfg_blk = ihgp.IHGPConfig(**IH_SEQ), ihgp.IHGPConfig(**IH_BLOCKED)
+
+    # ---- 8a: the DARE bank, card vs CPU, float64 ---------------------------------
+    model, p64, y64 = bench_inputs(torch.float64, "cpu")
+    ssm_c, ssm_h = model.build_ssm(p64.on(dev)), model.build_ssm(p64)
+
+    def failed_points(ssm, cfg):
+        """Coarse grid points per channel whose DARE fails the bank's gate
+        (residual >= 1e-4), which build_tables patches."""
+        r = torch.as_tensor(10.0 ** np.linspace(cfg.grid_lo, cfg.grid_hi, cfg.grid_coarse),
+                            dtype=ssm.A.dtype, device=ssm.A.device)
+        args = (ssm.A[:, None], ssm.H[:, None], ssm.Q[:, None], r)
+        return (~(dare.dare_residual(dare.dare_filter(*args), *args) < 1e-4)).sum(1).tolist()
+
+    out["bank"] = {}
+    for label, cfg in (("default", ihgp.IHGPConfig()), ("grid_lo-7", ihgp.IHGPConfig(grid_lo=-7.0))):
+        tc, card_s = host_s(lambda: ihgp.build_tables(ssm_c, cfg))
+        th = ihgp.build_tables(ssm_h, cfg)
+        rel = max(rel_err(getattr(tc, f).cpu(), getattr(th, f)) for f in ihgp.IHGPTables._fields)
+        failed = failed_points(ssm_c, cfg)
+        require(failed == failed_points(ssm_h, cfg), f"bank {label}: failed points differ")
+        log(f"phase8a build_tables {label} f64 (C={D + N}, bs={ssm_c.block_size}): card vs cpu "
+            f"rel {rel:.3e} (tol {TOL_TRAIN:g}); patched coarse points per channel {failed}; "
+            f"card {card_s:.3f} s")
+        require(rel <= TOL_TRAIN, f"DARE bank {label} on the card disagrees with the CPU")
+        out["bank"][label] = dict(rel=rel, patched_per_channel=failed, card_f64_s=card_s)
+    _, p32, y32 = bench_inputs(torch.float32, dev)
+    ssm32 = model.build_ssm(p32)
+    ihgp.build_tables(ssm32, cfg_seq)
+    _, bank32_s = host_s(lambda: ihgp.build_tables(ssm32, cfg_seq))
+    out["bank"]["card_f32_s"] = bank32_s
+    log(f"phase8a build_tables f32 on the card: {bank32_s:.3f} s")
+
+    # ---- 8b: ihgp_infer in three forms, the energy's gradient, EP one-level --------
+    yp = y64[:T_IH_PARITY]
+    lk = lambda r, cfg: ihgp._lookup_idx(ihgp._lookup_consts(ihgp.build_tables(
+        model.build_ssm(p64.on(r.Eft.device)), cfg, smoother=False)), r.sites.ttau)
+    out["parity"] = {}
+    for label, kw in (("seq", {}), ("blocked", dict(parallel=True, chunk=256)),
+                      ("one_level", dict(parallel=True, chunk=0))):
+        cfg = ihgp.IHGPConfig(**IH_SEQ, **kw)
+        rc, card_s = host_s(lambda: ihgp.ihgp_infer(model, p64, yp, None, cfg))
+        t0 = time.perf_counter()
+        rh = ihgp.ihgp_infer(model, p64, yp, None, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        require(rc.Eft.device.type == dev.type, "ihgp_infer did not run on the card")
+        rel = max(rel_err(a.cpu(), b) for a, b in (
+            (rc.Eft, rh.Eft), (rc.Varft, rh.Varft), (rc.lZ, rh.lZ), (rc.nlZ, rh.nlZ),
+            (rc.sites.ttau, rh.sites.ttau), (rc.sites.tnu, rh.sites.tnu)))
+        same_idx = torch.equal(lk(rc, cfg).cpu(), lk(rh, cfg))
+        log(f"phase8b ihgp_infer {label} T={T_IH_PARITY} f64: card vs cpu rel {rel:.3e} (tol "
+            f"{TOL_TRAIN:g}), grid indices equal {same_idx}; card {card_s:.2f} s, cpu "
+            f"{cpu_s:.2f} s; nlZ {rc.nlZ.cpu().tolist()}")
+        require(rel <= TOL_TRAIN and same_idx, f"ihgp_infer {label} on the card disagrees")
+        out["parity"][label] = dict(rel=rel, card_s=card_s, cpu_s=cpu_s)
+    grads = []
+    for d in (dev, "cpu"):
+        leaves = {k: getattr(p64, k).detach().to(d).requires_grad_(True) for k in PARAM_NAMES}
+        e = ihgp.ihgp_energy(model, GTNMFParams(**leaves), yp, None, device=d)
+        grads.append(torch.cat([e.reshape(1).detach()] + [
+            g.reshape(-1) for g in torch.autograd.grad(e, list(leaves.values()))]).cpu())
+    g_rel = rel_err(*grads)
+    log(f"phase8b ihgp_energy and its gradient over every leaf T={T_IH_PARITY} f64: energy "
+        f"{grads[0][0].item():.10g}, card vs cpu rel {g_rel:.3e} (tol {TOL_IH_GRAD:g})")
+    require(bool(torch.isfinite(grads[0]).all()) and g_rel <= TOL_IH_GRAD,
+            "ihgp_energy's gradient on the card disagrees with the CPU")
+    out["parity"]["energy_grad_rel"] = g_rel
+    for label, kw in (("parallel_chunk0", {}), ("parallel_chunk0_jitter1e-6", dict(jitter=1e-6))):
+        cfg = EPConfig(ep_itts=3, parallel=True, chunk=0, **kw)
+        rc, rh = (ep_infer(model, p64, y64[:T_IH_EP], None, cfg, device=d) for d in (None, "cpu"))
+        rel = max(rel_err(a.cpu(), b) for a, b in ((rc.Eft, rh.Eft), (rc.Varft, rh.Varft),
+                                                   (rc.nlZ, rh.nlZ)))
+        log(f"phase8b ep_infer seq {label} T={T_IH_EP} f64: card vs cpu rel {rel:.3e} (tol "
+            f"{TOL_TRAIN:g}); nlZ {rc.nlZ.cpu().tolist()}")
+        require(rel <= TOL_TRAIN, f"one-level EP ({label}) on the card disagrees with the CPU")
+        out["parity"][f"ep_{label}_rel"] = rel
+
+    # ---- 8c: float32 at the training length ------------------------------------------
+    fk.reset_launches()
+    yt = y32[:T_IH_TRAIN]
+    for cfg in (cfg_seq, cfg_blk):  # first float32 use of each op outside the timings
+        ihgp.ihgp_infer(model, p32, yt[:256], None, cfg)
+    with torch.no_grad():
+        e32, energy_s = host_s(lambda: ihgp.ihgp_energy(model, p32, yt, None, cfg_seq))
+        # the float64 reference on the host CPU: the same code (8b: card and
+        # CPU agree to rounding), and the faster of the two for this loop
+        e64 = ihgp.ihgp_energy(model, p64, y64[:T_IH_TRAIN], None, cfg_seq, device="cpu")
+    gap = rel_err(e32.cpu(), e64.cpu())
+    us_step = 1e6 * energy_s / T_IH_TRAIN
+    r_seq, seq_s = host_s(lambda: ihgp.ihgp_infer(model, p32, yt, None, cfg_seq))
+    r_blk, blk_s = host_s(lambda: ihgp.ihgp_infer(model, p32, yt, None, cfg_blk))
+    for label, r in (("ihgp-seq", r_seq), ("ihgp-blocked", r_blk)):
+        check_posterior(f"phase8c {label}", r.nlZ, r.Eft, r.Varft, (T_IH_TRAIN, D + N))
+    log(f"phase8c T={T_IH_TRAIN} f32 on {smi}: ihgp_energy (bank + sweep 1) {energy_s:.2f} s = "
+        f"{us_step:.0f} us/step; f32 vs f64 energy {e32.item():.8g} vs {e64.item():.8g}, rel "
+        f"gap {gap:.3e} (bar 1e-3); ihgp-seq {seq_s:.2f} s (sweeps 2-3 "
+        f"{(seq_s - energy_s) / 2:.2f} s each by difference), nlZ {r_seq.nlZ.cpu().tolist()}; "
+        f"ihgp-blocked {blk_s:.2f} s (sweeps 2-3 {(blk_s - energy_s) / 2:.2f} s each), nlZ "
+        f"{r_blk.nlZ.cpu().tolist()}")
+    require(math.isfinite(gap) and gap < 1e-3, "float32 ihgp_energy drifted from float64")
+    out["t16000"] = dict(T=T_IH_TRAIN, energy_s=energy_s, sweep1_us_per_step=us_step,
+                         energy_rel_gap_f64=gap, seq_s=seq_s, blocked_s=blk_s,
+                         seq_later_sweep_s=(seq_s - energy_s) / 2,
+                         blocked_later_sweep_s=(blk_s - energy_s) / 2)
+
+    # ---- 8d: the headline shape --------------------------------------------------------
+    predicted = us_step * T_MAIN / 1e6
+    T_d = T_MAIN if predicted <= IH_SWEEP1_LIMIT_S else T_IH_CUT
+    r_d, d_s = host_s(lambda: ihgp.ihgp_infer(model, p32, y32[:T_d], None, cfg_blk))
+    check_posterior("phase8d ihgp-blocked", r_d.nlZ, r_d.Eft, r_d.Varft, (T_d, D + N))
+    log(f"phase8d ihgp-blocked T={T_d} f32 on {smi}: {d_s:.2f} s, {d_s / 3:.3f} s/sweep "
+        f"(sweep 1 predicted {predicted:.0f} s at T={T_MAIN}"
+        f"{'' if T_d == T_MAIN else f', over {IH_SWEEP1_LIMIT_S:.0f} s: cut to T={T_d}'}); nlZ "
+        f"{r_d.nlZ.cpu().tolist()}")
+    out["headline"] = dict(T=T_d, s=d_s, s_per_sweep=d_s / 3, sweep1_predicted_s=predicted,
+                           nlZ=r_d.nlZ.cpu().tolist())
+
+    # ---- 8e: separate() with its default engine, batched IHGP ---------------------------
+    models, plist, y_mix, parts = mixture_inputs(torch.float32, dev, T_IH_MIX)
+    sep, sep_s = host_s(lambda: separate(models, plist, y_mix, true_sources=parts,
+                                         mixture_lik=MIX_LIK, **IH_MIX_KW))
+    require(bool(torch.isfinite(sep.sources).all()) and bool(torch.isfinite(sep.snr).all())
+            and bool(torch.isfinite(sep.result.nlZ).all()), "non-finite IHGP separation")
+    m64, pm64, ym64, parts64 = mixture_inputs(torch.float64, dev, T_IH_MIX_F64)
+    seps = [separate(m64, pm64, ym64, true_sources=parts64, n_samples=0, mixture_lik=MIX_LIK,
+                     device=d, **IH_MIX_KW) for d in (None, "cpu")]
+    sep_rel = max(rel_err(a.cpu(), b) for a, b in (
+        (seps[0].sources, seps[1].sources), (seps[0].result.Eft, seps[1].result.Eft),
+        (seps[0].result.Varft, seps[1].result.Varft), (seps[0].result.nlZ, seps[1].result.nlZ)))
+    log(f"phase8e separate (default engine ihgp, C={sep.result.Eft.shape[1]}) "
+        f"T={T_IH_MIX} f32: {sep_s:.2f} s, SNR {sep.snr.cpu().tolist()} dB, nlZ "
+        f"{sep.result.nlZ.cpu().tolist()}; T={T_IH_MIX_F64} f64 card vs cpu rel {sep_rel:.3e} "
+        f"(tol {TOL_TRAIN:g})")
+    require(sep_rel <= TOL_TRAIN, "IHGP separation on the card disagrees with the CPU")
+    with open(os.path.join(ROOT, CORPUS)) as f:
+        names = [r["file"] for r in json.load(f)["files"] if r["kernel1"] == "matern32"][:BF_IH]
+    cmodel, cpB = load_trained_batch([os.path.join(ROOT, MUSIC.format(n)) for n in names],
+                                     device=dev, dtype=torch.float32)
+    yB = np.stack([prior_signal(np.random.default_rng(100 + b), cmodel, cpB.select(b),
+                                T_IH_BATCH) for b in range(BF_IH)])
+    yB = torch.tensor(yB.astype(np.float32), device=dev)
+    maskB = torch.ones_like(yB, dtype=torch.bool)
+    maskB[:, 1500 - 1 - GAP_HALF:1500 + GAP_HALF] = False
+    rb, batch_s = host_s(lambda: infer_batch("ihgp", cmodel, cpB, yB, maskB, **IH_CORPUS_KW))
+    b = BF_IH - 1
+    r1 = ihgp.ihgp_infer(cmodel, cpB.select(b), yB[b], maskB[b], ihgp.IHGPConfig(**IH_CORPUS_KW))
+    same = all(torch.equal(x[b], y) for x, y in ((rb.Eft, r1.Eft), (rb.Varft, r1.Varft),
+                                                  (rb.nlZ, r1.nlZ), (rb.sites.ttau, r1.sites.ttau)))
+    require(bool(torch.isfinite(rb.nlZ).all()), "non-finite batched IHGP energies")
+    log(f"phase8e infer_batch('ihgp') BF={BF_IH} ({', '.join(names)}) T={T_IH_BATCH} f32: "
+        f"{batch_s:.2f} s, nlZ {rb.nlZ[:, -1].cpu().tolist()}; file {b} the same bits as the "
+        f"single-file engine: {same}")
+    require(same, "batched IHGP differs from the single-file engine")
+    launches = counts()
+    log(f"phase8 launches of K1-K4 on the IHGP path (8c-8e): {launches}")
+    require(all(v == 0 for v in launches.values()),
+            "the IHGP path launched a kernel that JAX's IHGP does not use")
+    out.update(separate=dict(T=T_IH_MIX, s=sep_s, snr_db=sep.snr.cpu().tolist(),
+                             f64_T=T_IH_MIX_F64, card_vs_cpu_rel=sep_rel),
+               batch=dict(BF=BF_IH, T=T_IH_BATCH, s=batch_s, same_bits_as_single=same),
+               launches=launches, phase8_s=time.perf_counter() - t_phase)
+    log(f"phase8 done in {out['phase8_s']:.0f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nsgp_tpu_torch")):
         raise RuntimeError("chip_smoke.py must run from a checkout of the repository")
@@ -1098,6 +1319,9 @@ def main() -> int:
 
     # ---- phase 7: the training path -----------------------------------------------
     training = training_phase(smi, dev)
+
+    # ---- phase 8: the IHGP path -----------------------------------------------------
+    ihgp_numbers = ihgp_phase(smi, dev)
     log(f"all phases done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- the kernels line --------------------------------------------------------
@@ -1145,6 +1369,7 @@ def main() -> int:
               plain_steps=T_KERNEL, **fk.adf_launch_shape(77)),
     ]
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

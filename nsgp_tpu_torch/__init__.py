@@ -5,14 +5,17 @@ layout and names module for module, so each counterpart is found at the
 same path:
 
 - ``ops``       : cubature rules, kernels -> state space, block SSM assembly,
-                  moment matching, the sequential Kalman engine, and the
+                  moment matching, the sequential Kalman engine, the blocked
+                  and log-depth scans, the DARE bank (``ops.dare``), and the
                   hand-written CUDA kernels of the fused filter/smoother
                   (``ops.fused_kalman``, sources under ``csrc/``).
 - ``models``    : the GT-NMF model and its parameters (an ``nn.Module``),
                   stacked per-file parameters, joint mixture models.
 - ``inference`` : Power-EP (``ep_infer``), sequential and fused backends;
-                  batched EP over files (``ep_infer_batch``); the engine
-                  registry.
+                  steady-state IHGP (``ihgp_infer``, ``ihgp_energy``); batched
+                  EP and IHGP over files (``ep_infer_batch``,
+                  ``ihgp_infer_batch``); GIEKF; learning and HMC/VI; the
+                  engine registry.
 - ``apps``      : missing-data synthesis (``fill_gaps``, ``fill_gaps_batch``)
                   and source separation (``separate``).
 - ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR.

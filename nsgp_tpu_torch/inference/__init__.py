@@ -1,3 +1,4 @@
-"""Inference engines: Power-EP, single-file and batched, and the registry."""
+"""Inference engines: Power-EP and IHGP, single-file and batched, GIEKF,
+learning and HMC/VI, and the registry."""
 
-from nsgp_tpu_torch.inference import batched, ep, registry  # noqa: F401
+from nsgp_tpu_torch.inference import batched, ep, ihgp, registry  # noqa: F401

@@ -13,11 +13,14 @@ hyperparameters differ freely (stacked ``GTNMFParams``, leading (BF,) axis).
 - ``backend="seq"`` (the JAX ``vmap`` branch): the single-file ``ep_infer``
   looped over the files.
 
+``ihgp_infer_batch`` runs the single-file IHGP engine over the files, each
+with its own DARE bank, and stacks the results on a leading file axis (the
+JAX package vmaps the same function).
+
 On the card a file is a thread block, so the layout is simply (file,
 channel): the JAX package's ``flatten_ssm_zmajor``, ``_to_per_file``,
 ``_to_flat`` and ``_block_diag_WT`` only arrange files on TPU lanes and have
-no counterpart here.  The IHGP and GIEKF batch engines wait for those
-engines to be ported.
+no counterpart here.  The batched GIEKF engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -129,15 +132,46 @@ def ep_infer_batch(
                          maxdiff=torch.stack(maxdiff, dim=1), sites=Sites(tt, tn))
 
 
+def ihgp_infer_batch(
+    model: GTNMFModel,
+    paramsB: GTNMFParams,  # buffers with a leading (BF,) file axis
+    yB: torch.Tensor,  # (BF, T); NaNs allowed (-> missing)
+    maskB: Optional[torch.Tensor] = None,  # (BF, T) bool; default = ~isnan(yB)
+    config=None,  # IHGPConfig; None = its defaults
+    device=None,  # None = the card; "cpu" runs on the CPU
+):
+    """IHGP inference over BF files: ``ihgp_infer`` per file (each its own
+    DARE bank), every ``IHGPResult`` field stacked on a leading (BF,) axis."""
+    from nsgp_tpu_torch.inference import ihgp as ihgp_mod
+
+    config = ihgp_mod.IHGPConfig() if config is None else config
+    dev = resolve_device(device)
+    paramsB = paramsB.on(dev)
+    yB = yB.to(dev)
+    maskB = ~torch.isnan(yB) if maskB is None else maskB.to(dev, torch.bool)
+    rs = [ihgp_mod.ihgp_infer(model, paramsB.select(b), yB[b], maskB[b], config, device=dev)
+          for b in range(yB.shape[0])]
+    stack = lambda f: torch.stack([getattr(r, f) for r in rs])
+    return ihgp_mod.IHGPResult(
+        Eft=stack("Eft"), Varft=stack("Varft"), lZ=stack("lZ"), nlZ=stack("nlZ"),
+        maxdiff=stack("maxdiff"),
+        sites=Sites(torch.stack([r.sites.ttau for r in rs]),
+                    torch.stack([r.sites.tnu for r in rs])))
+
+
 def infer_batch(engine: str, model, paramsB, yB, maskB=None, config=None, device=None,
                 **cfg_kwargs):
     """Batched analogue of ``registry.infer`` over the leading file axis of
-    (paramsB, yB, maskB)."""
+    (paramsB, yB, maskB).  Every ``"ihgp*"`` name (``"ihgp_ref"``,
+    ``"ihgp_tuned"``, ...) is the IHGP engine, as in the JAX package."""
     from nsgp_tpu_torch.inference import registry
 
-    _, _, config_cls = registry.get_engine("ihgp" if engine.startswith("ihgp") else engine)
+    ihgp = engine.startswith("ihgp")
+    _, _, config_cls = registry.get_engine("ihgp" if ihgp else engine)
     if engine == "giekf":
         raise NotImplementedError("batched GIEKF is not ported yet: ROADMAP Queue 1 item 10 "
                                   "(giekf_infer_batch)")
     cfg = config if config is not None else config_cls(**cfg_kwargs)
+    if ihgp:
+        return ihgp_infer_batch(model, paramsB, yB, maskB, cfg, device=device)
     return ep_infer_batch(model, paramsB, yB, maskB, cfg, device=device)

@@ -17,9 +17,12 @@ Two backends:
 
 - ``"seq"`` (JAX ``"xla"``): the sequential engine of ``ops.kalman`` with
   the reference's last-site bookkeeping.  Python loops over T — small T.
-  With ``parallel=True`` and ``chunk > 0`` the fixed-site sweeps (>= 2) run
-  the blocked two-level scans of ``ops.bscan`` and re-site all T, as the JAX
-  package's parallel path does.
+  With ``parallel=True`` the fixed-site sweeps (>= 2) run the blocked
+  two-level scans of ``ops.bscan`` (``chunk > 0``) or the one-level
+  log-depth scans of ``ops.pscan`` (``chunk = 0``) and re-site all T, as the
+  JAX package's parallel path does.  ``jitter`` (the smoother's
+  pseudo-prediction ridge) acts where JAX's does, on the one-level path; the
+  blocked and fused passes ignore it, as JAX's blocked and Pallas passes do.
 - ``"fused"`` (JAX ``"pallas"``): the fused passes of ``ops.fused_kalman``
   and the all-T re-site.  On CUDA tensors every pass is one hand-written
   kernel launch; on CPU tensors the same passes run as their plain torch
@@ -40,7 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
-from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman
+from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman, pscan
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
 from nsgp_tpu_torch.utils.device import place_inputs
@@ -59,11 +62,11 @@ class EPConfig(NamedTuple):
     backend: str = "seq"  # 'seq' | 'fused'
     s_chunk: int = 0  # sigma points per rescale chunk of the batched ADF
     # kernel (0 = all in one chunk); the single-signal kernel ignores it
-    parallel: bool = False  # backend 'seq': blocked parallel-in-time passes
+    parallel: bool = False  # backend 'seq': parallel-in-time passes
     chunk: int = 512  # blocked-scan chunk of the parallel path (0 = the
-    # one-level log-depth scan, not ported)
+    # one-level log-depth scan)
+    jitter: float = 0.0  # smoother pseudo-prediction ridge (one-level path)
     # Not ported yet (they raise NotImplementedError when set):
-    jitter: float = 0.0  # smoother pseudo-prediction ridge
     channel_axis: str = ""  # channel sharding
     time_axis: str = ""  # time sharding
 
@@ -89,12 +92,11 @@ def _check_config(cfg: EPConfig) -> None:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; available: {BACKENDS}")
     unported = {
-        # the one-level scan (chunk = 0); the fused backend has its own
-        # blocked passes inside the kernels and no parallel switch
-        "parallel": cfg.parallel and (cfg.chunk <= 0 or cfg.backend != "seq"),
+        # the fused backend has its own blocked passes inside the kernels and
+        # no parallel switch
+        "parallel": cfg.parallel and cfg.backend != "seq",
         # a chunk set without the path that reads it
         "chunk": not cfg.parallel and cfg.chunk != EPConfig._field_defaults["chunk"],
-        "jitter": cfg.jitter != 0.0,
         "channel_axis": bool(cfg.channel_axis),
         "time_axis": bool(cfg.time_axis),
     }
@@ -162,8 +164,12 @@ def _forward_backward(ssm, sites: Sites, cfg: EPConfig):
     if cfg.backend == "fused":
         return fused_kalman.filter_smoother_fused(ssm, sites)
     if cfg.parallel:
-        return bscan.blocked_filter_smoother(ssm, sites, cfg.chunk)
-    fr = kalman.filter_with_sites(ssm, sites, store=True)
+        if cfg.chunk:
+            return bscan.blocked_filter_smoother(ssm, sites, cfg.chunk)
+        ms, Ps = pscan.filter_smoother_with_sites(ssm, sites, jitter=cfg.jitter)
+        T = ms.shape[0]
+        return ms.reshape(T, -1), Ps.reshape(T, -1)
+    fr = kalman.filter_with_sites(ssm, sites, store=True, jitter=cfg.jitter)
     return kalman.rts_smoother(ssm, fr)
 
 

@@ -1,14 +1,12 @@
 """Engine registry: one dispatch point for the inference engines.
 
 Port of ``nsgp_tpu/inference/registry.py``.  Applications select an engine
-by name.  ``"ep"`` and ``"giekf"`` are ported; ``"ihgp"`` (ROADMAP Queue 1
-item 12) raises ``NotImplementedError``.
+by name: ``"ep"``, ``"ihgp"`` and ``"giekf"``.
 """
 
 from __future__ import annotations
 
 ENGINES = ("ep", "ihgp", "giekf")
-_UNPORTED = {"ihgp": "ROADMAP Queue 1 item 12 (ops/dare.py, inference/ihgp.py, ihgp_energy)"}
 
 
 def get_engine(name: str):
@@ -17,12 +15,14 @@ def get_engine(name: str):
         from nsgp_tpu_torch.inference import ep
 
         return ep.ep_infer, ep.ep_energy, ep.EPConfig
+    if name == "ihgp":
+        from nsgp_tpu_torch.inference import ihgp
+
+        return ihgp.ihgp_infer, ihgp.ihgp_energy, ihgp.IHGPConfig
     if name == "giekf":
         from nsgp_tpu_torch.inference import giekf
 
         return giekf.giekf_infer, giekf.giekf_energy, giekf.GIEKFConfig
-    if name in _UNPORTED:
-        raise NotImplementedError(f"engine {name!r} is not ported yet: {_UNPORTED[name]}")
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")
 
 

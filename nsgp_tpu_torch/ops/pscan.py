@@ -3,9 +3,11 @@
 Port of the element algebra of ``nsgp_tpu/ops/pscan.py`` (Särkkä &
 García-Fernández 2020, "Temporal parallelization of Bayesian smoothers").
 Once the EP sites are fixed a sweep is a linear-Gaussian filter and smoother
-whose steps compose associatively; ``ops.bscan`` composes them in chunks.
-The one-level log-depth scans of the JAX module
-(``parallel_filter_with_sites``, ``parallel_rts_smoother``) are not ported.
+whose steps compose associatively; ``ops.bscan`` composes them in chunks,
+and ``parallel_filter_with_sites`` / ``parallel_rts_smoother`` compose all T
+steps at once with ``associative_scan``, the port's counterpart of
+``jax.lax.associative_scan`` (log depth, (T, C, bs, bs) elements in memory:
+small T).
 
 Everything is batched over leading axes and the channel axis C: element
 tensors are (..., C, bs, bs) / (..., C, bs).  The sites enter in natural
@@ -142,3 +144,89 @@ def _smoother_combine(later, earlier):
     Ea, ga, La = later
     Eb, gb, Lb = earlier
     return Eb @ Ea, _mv(Eb, ga) + gb, _sym(Eb @ La @ Eb.transpose(-1, -2) + Lb)
+
+
+# ---------------------------------------------------------------------------
+# The one-level log-depth scan
+# ---------------------------------------------------------------------------
+
+
+def _interleave(a, b):
+    """Rows a0, b0, a1, b1, ... (len(a) - len(b) is 0 or 1)."""
+    out = a.new_empty((a.shape[0] + b.shape[0],) + a.shape[1:])
+    out[0::2] = a
+    out[1::2] = b
+    return out
+
+
+def _scan(combine, elems):
+    """The odd/even recursion of ``jax.lax.associative_scan``, combine for
+    combine: pairs are reduced, the half-length scan recursed on, and the
+    even rows completed from it."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _scan(combine, combine(tuple(e[0:-1:2] for e in elems),
+                                 tuple(e[1::2] for e in elems)))
+    rest = tuple(e[2::2] for e in elems)
+    if n % 2 == 0:
+        head = tuple(o[:-1] for o in odd)
+        even = combine(head, rest) if n > 2 else rest
+    else:
+        even = combine(odd, rest)
+    return tuple(_interleave(torch.cat([e[:1], v], dim=0), o)
+                 for e, v, o in zip(elems, even, odd))
+
+
+def associative_scan(combine, elems, reverse: bool = False):
+    """Inclusive scan over axis 0 of a tuple of tensors, in log depth.
+
+    ``combine(a, b)`` takes and returns tuples batched over the leading axis,
+    ``a`` the earlier prefix.  With ``reverse`` the sequence is flipped first,
+    exactly as JAX does: the FIRST argument of ``combine`` is then the suffix
+    over later times, the second the earlier element applied on top.
+    """
+    elems = tuple(elems)
+    if reverse:
+        elems = tuple(torch.flip(e, [0]) for e in elems)
+    out = _scan(combine, elems)
+    if reverse:
+        out = tuple(torch.flip(e, [0]) for e in out)
+    return out
+
+
+def parallel_filter_with_sites(ssm: BlockSSM, sites: Sites):
+    """O(log T)-depth forward filter with fixed EP sites: filtered
+    (ms (T, C, bs), Ps (T, C, bs, bs)), as ``kalman.filter_with_sites``."""
+    _, b, C, _, _ = associative_scan(_filter_combine, _filter_elements(ssm, sites))
+    return b, C
+
+
+def parallel_rts_smoother(ssm: BlockSSM, ms, Ps, jitter: float = 0.0):
+    """O(log T)-depth RTS smoother over filtered (ms (T, C, bs), Ps (T, C,
+    bs, bs)), as ``kalman.rts_smoother``.  ``jitter`` adds a diagonal ridge
+    to the pseudo-prediction before the gain solve (the reference retries
+    failed Choleskys with random jitter; this is a fixed ridge)."""
+    A, Q = ssm.A, ssm.Q
+    At = A.transpose(-1, -2)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Pk = Ps[:-1]
+    Pp = _sym(A @ Pk @ At + Q) + jitter * eye
+    PA = Pk @ At
+    # E = P A' Pp^{-1}; pad_eye keeps padded dims nonsingular (PA rows are 0)
+    E = torch.linalg.solve((Pp + ssm.pad_eye).transpose(-1, -2),
+                           PA.transpose(-1, -2)).transpose(-1, -2)
+    g = ms[:-1] - _mv(E, _mv(A, ms[:-1]))
+    L = _sym(Pk - E @ Pp @ E.transpose(-1, -2))
+    E = torch.cat([E, torch.zeros_like(E[:1])], dim=0)
+    g = torch.cat([g, ms[-1:]], dim=0)
+    L = torch.cat([L, Ps[-1:]], dim=0)
+    _, g_s, L_s = associative_scan(_smoother_combine, (E, g, L), reverse=True)
+    return g_s, _sym(L_s)
+
+
+def filter_smoother_with_sites(ssm: BlockSSM, sites: Sites, jitter: float = 0.0):
+    """One full linear-Gaussian forward/backward pass, parallel in time:
+    smoothed (ms (T, C, bs), Ps (T, C, bs, bs))."""
+    ms, Ps = parallel_filter_with_sites(ssm, sites)
+    return parallel_rts_smoother(ssm, ms, Ps, jitter=jitter)

@@ -31,6 +31,7 @@ from nsgp_tpu_torch.apps import source_sep as tsep
 from nsgp_tpu_torch.inference import batched as tbt
 from nsgp_tpu_torch.inference import ep as tep
 from nsgp_tpu_torch.inference import giekf as tgk
+from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.inference import registry
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, stack_params
 from nsgp_tpu_torch.utils import metrics as tmetrics
@@ -171,8 +172,11 @@ def test_registry_infer_is_ep_infer(files):
     for f in ("Eft", "Varft", "nlZ"):
         np.testing.assert_array_equal(_np(getattr(r, f)), _np(getattr(r0, f)))
         np.testing.assert_array_equal(_np(getattr(rc, f)), _np(getattr(r0, f)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        registry.infer("ihgp", model, p, y, mask, device="cpu")
+    # IHGP is ported: the registry runs it with the same config rule
+    ri = registry.infer("ihgp", model, p, y, mask, device="cpu", ep_itts=2)
+    ri0 = tih.ihgp_infer(model, p, y, mask, tih.IHGPConfig(ep_itts=2), device="cpu")
+    for f in ("Eft", "Varft", "nlZ"):
+        np.testing.assert_array_equal(_np(getattr(ri, f)), _np(getattr(ri0, f)))
     # GIEKF is ported: the registry runs its inference with the config rule above
     rg = registry.infer("giekf", model, p, y[:16], mask[:16], device="cpu", g_iter=1)
     rg0 = tgk.giekf_infer(model, p, y[:16], mask[:16], tgk.GIEKFConfig(g_iter=1), device="cpu")

@@ -31,6 +31,7 @@ from nsgp_tpu.ops import pallas_kalman as jpk
 from nsgp_tpu_torch import convert
 from nsgp_tpu_torch.inference import batched as tbt
 from nsgp_tpu_torch.inference import ep as tep
+from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, stack_params
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops import ssm as tssm
@@ -209,9 +210,14 @@ def test_infer_batch_dispatch(files, fused_batch):
     args = (model, pB, torch.tensor(yB), torch.tensor(maskB))
     r = tbt.infer_batch("ep", *args, device="cpu", ep_itts=3, backend="fused")
     np.testing.assert_array_equal(_np(r.Eft), _np(res.Eft))
-    for engine in ("ihgp", "ihgp_tuned", "giekf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbt.infer_batch(engine, *args, device="cpu")
+    # every "ihgp*" name is the batched IHGP engine; batched GIEKF is not ported
+    ri = tbt.ihgp_infer_batch(*args, tih.IHGPConfig(ep_itts=2), device="cpu")
+    assert ri.Eft.shape == (BF, T, D + N) and ri.nlZ.shape == (BF, 2)
+    for engine in ("ihgp", "ihgp_tuned"):
+        r = tbt.infer_batch(engine, *args, device="cpu", ep_itts=2)
+        assert torch.equal(r.Eft, ri.Eft) and torch.equal(r.nlZ, ri.nlZ), engine
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbt.infer_batch("giekf", *args, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tbt.infer_batch("ekf", *args, device="cpu")
 

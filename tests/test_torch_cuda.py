@@ -20,6 +20,9 @@ ragged lengths (one chunk, one step more than a chunk, a short last chunk),
 every block size from 1 to 8, one channel and 190, with runs of zero sites and
 a long gap, for equal bits over two runs, exactly zero padded dims and NaN
 propagation.
+The plain-torch engines (the training path, IHGP's DARE bank and steady
+passes in their three forms) run on the card against the same code on the
+CPU.
 Tolerances relative to the reference's max |value|: 1e-9 in float64 (the
 two differ in summation order and FMA contraction only), 1e-4 in float32
 at these short lengths.
@@ -566,3 +569,57 @@ def test_giekf_energy_gradient_card_matches_cpu(cuda):
     card, cpu = (giekf_infer(model, params, y, None, cfg, device=d) for d in (None, "cpu"))
     assert _rel([card.Eft.cpu(), card.Varft.cpu(), card.nll.cpu()],
                 [cpu.Eft, cpu.Varft, cpu.nll]) <= TRAIN_TOL
+
+
+# ---------------------------------------------------------------------------
+# The IHGP engine on the card (plain torch, no kernel of its own): the DARE
+# bank, the three forms of the steady passes and the energy's gradient, held
+# against the same code on the CPU at float64.
+# ---------------------------------------------------------------------------
+
+
+def _ihgp_case():
+    model, params, _ = _train_case(variant="amp")
+    model = model._replace(kernel1="matern32")  # modulators (matern52) padded to bs=4
+    y, _, _ = sample_prior(torch.Generator().manual_seed(3), model, params, 100)
+    y[40:50] = float("nan")
+    return model, params, y
+
+
+@pytest.mark.cuda
+def test_ihgp_tables_card_match_cpu(cuda):
+    from nsgp_tpu_torch.inference import ihgp
+
+    model, params, _ = _ihgp_case()
+    for cfg in (ihgp.IHGPConfig(), ihgp.IHGPConfig(grid_lo=-7.0, pf_correct=0.5)):
+        card = ihgp.build_tables(model.build_ssm(params.on(cuda)), cfg)
+        cpu = ihgp.build_tables(model.build_ssm(params), cfg)
+        assert card.Ph.device.type == "cuda"
+        assert _rel([x.cpu() for x in card], list(cpu)) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [dict(), dict(parallel=True, chunk=32),
+                                  dict(parallel=True, chunk=0)])
+def test_ihgp_infer_card_matches_cpu(cuda, form):
+    """Three forms; T = 100 is a ragged multiple of the blocked chunk."""
+    from nsgp_tpu_torch.inference import ihgp
+
+    model, params, y = _ihgp_case()
+    cfg = ihgp.IHGPConfig(ep_itts=3, damping=(0.1, 0.025), keep_best=True, **form)
+    card, cpu = (ihgp.ihgp_infer(model, params, y, None, cfg, device=d) for d in (None, "cpu"))
+    assert card.Eft.device.type == "cuda"
+    assert _rel([card.Eft.cpu(), card.Varft.cpu(), card.lZ.cpu(), card.nlZ.cpu(),
+                 *(s.cpu() for s in card.sites)],
+                [cpu.Eft, cpu.Varft, cpu.lZ, cpu.nlZ, *cpu.sites]) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+def test_ihgp_energy_gradient_card_matches_cpu(cuda):
+    from nsgp_tpu_torch.inference.ihgp import ihgp_energy
+
+    model, params, y = _ihgp_case()
+    energy = lambda p, dev: ihgp_energy(model, p, y, None, device=dev)
+    card = _grads(energy, params, cuda)
+    assert all(bool(torch.isfinite(g).all()) for g in card)
+    assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL

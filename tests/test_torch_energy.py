@@ -110,8 +110,8 @@ def test_outlier_hits_the_z_floor():
 
 
 def test_ep_energy_ignores_backend_and_follows_mask():
-    """Energy mode is the sequential engine whatever the backend; an explicit
-    mask equals the NaNs it stands for."""
+    """Energy mode is the sequential engine whatever the backend or jitter;
+    an explicit mask equals the NaNs it stands for."""
     jm, jp = _toy("amp", "softplus")
     y = _signal(jm, jp, "gap")
     model = GTNMFModel(*jm)
@@ -122,10 +122,10 @@ def test_ep_energy_ignores_backend_and_follows_mask():
                           tep.EPConfig(ep_itts=3, backend="fused"), device="cpu")
     masked = tep.ep_energy(model, params, torch.tensor(np.nan_to_num(y)),
                            torch.tensor(~np.isnan(y)), tep.EPConfig(ep_itts=3), device="cpu")
-    assert seq.item() == fused.item() == masked.item()
-    with pytest.raises(NotImplementedError, match="jitter"):
-        tep.ep_energy(model, params, torch.tensor(y), None, tep.EPConfig(jitter=1e-6),
-                      device="cpu")
+    # jitter is ignored by the energy, as by JAX's (which never reads it there)
+    jit = tep.ep_energy(model, params, torch.tensor(y), None,
+                        tep.EPConfig(ep_itts=3, jitter=1e-6), device="cpu")
+    assert seq.item() == fused.item() == masked.item() == jit.item()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tep.ep_energy(model, params, torch.tensor(y))

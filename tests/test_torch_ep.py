@@ -111,13 +111,50 @@ def test_fused_backend_matches_jax_pallas(case):
                                          ("jitter", 1e-6), ("channel_axis", "c"),
                                          ("time_axis", "t")])
 def test_unported_config_fields_raise(field, value):
-    model, params = _port(*_toy(D=2, N=1))
-    y = torch.zeros(8, dtype=torch.float64)
+    """The fields not ported raise.  ``parallel`` with ``chunk=0`` (the
+    one-level log-depth scans) and ``jitter`` are ported: those two cases
+    run, on ``backend="seq"``, against JAX's ``ep_infer`` at rtol 1e-8 (the
+    jitter on the one-level path, the only one where JAX's acts; the T=32
+    signal has a NaN gap)."""
+    jm, jp = _toy()
+    model, params = _port(jm, jp)
     kw = {field: value}
-    if field == "parallel":  # ported with chunk > 0; the one-level scan (chunk = 0) is not
-        kw["chunk"] = 0
+    if field in ("parallel", "jitter"):
+        kw.update(parallel=True, chunk=0, ep_itts=2)
+        y = _signal(jm, jp, "nan_gap")[50:82]
+        r_j = jep.ep_infer(jm, jp, jnp.asarray(y), None, jep.EPConfig(unroll=1, **kw))
+        r_t = tep.ep_infer(model, params, torch.tensor(y), None, tep.EPConfig(**kw),
+                           device="cpu")
+        for f in ("Eft", "Varft", "lZ", "nlZ", "ms", "Ps"):
+            b = np.asarray(getattr(r_j, f))
+            np.testing.assert_allclose(_np(getattr(r_t, f)), b, rtol=1e-8,
+                                       atol=1e-8 * np.abs(b).max(), err_msg=f)
+        for a, b in zip(r_t.sites, r_j.sites):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-8,
+                                       atol=1e-8 * np.abs(np.asarray(b)).max())
+        return
+    y = torch.zeros(8, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match=field):
         tep.ep_infer(model, params, y, None, tep.EPConfig(**kw), device="cpu")
+
+
+def test_jitter_is_ignored_where_jax_ignores_it():
+    """JAX's ``jitter`` acts on the one-level path only: its blocked, Pallas
+    and sequential sweeps and its energy ignore it, and so do the port's
+    (the same bits as without it)."""
+    jm, jp = _toy()
+    model, params = _port(jm, jp)
+    y = torch.tensor(_signal(jm, jp, "nan_gap")[40:88])
+    for kw in (dict(), dict(backend="fused"), dict(parallel=True, chunk=16)):
+        r0 = tep.ep_infer(model, params, y, None, tep.EPConfig(ep_itts=2, **kw), device="cpu")
+        r1 = tep.ep_infer(model, params, y, None, tep.EPConfig(ep_itts=2, jitter=1e-3, **kw),
+                          device="cpu")
+        assert torch.equal(r0.Eft, r1.Eft) and torch.equal(r0.nlZ, r1.nlZ), kw
+    r0 = tep.ep_infer(model, params, y, None, tep.EPConfig(ep_itts=2, parallel=True, chunk=0),
+                      device="cpu")
+    r1 = tep.ep_infer(model, params, y, None,
+                      tep.EPConfig(ep_itts=2, parallel=True, chunk=0, jitter=1e-3), device="cpu")
+    assert not torch.equal(r0.Varft, r1.Varft)  # where it acts, it acts
 
 
 def test_parallel_is_refused_on_the_fused_backend():

@@ -31,6 +31,7 @@ from nsgp_tpu_torch.convert import params_from_numpy
 from nsgp_tpu_torch.inference import ep as tep
 from nsgp_tpu_torch.inference import giekf as tgk
 from nsgp_tpu_torch.inference import hmc as thmc
+from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.inference import learn as tlearn
 from nsgp_tpu_torch.inference import registry
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
@@ -209,10 +210,13 @@ def test_registry_energy_and_engines(toy):
     assert e.item() == e0.item() == ec.item()
     eg = registry.energy("giekf", model, tp, y_t, device="cpu")
     assert eg.item() == tgk.giekf_energy(model, tp, y_t, device="cpu").item()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        registry.energy("ihgp", model, tp, y_t, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlearn.fit_hyperparams(model, tp, y_t, engine="ihgp", steps=1, device="cpu")
+    # IHGP is ported: its energy through the registry, and training through it
+    assert registry.get_engine("ihgp") == (tih.ihgp_infer, tih.ihgp_energy, tih.IHGPConfig)
+    ei = registry.energy("ihgp", model, tp, y_t, device="cpu")
+    assert ei.item() == tih.ihgp_energy(model, tp, y_t, device="cpu").item()
+    fit_i = tlearn.fit_hyperparams(model, tp, y_t, engine="ihgp", specs=SPECS, steps=1,
+                                   device="cpu")
+    assert fit_i.energies.shape == (1,) and fit_i.energies[0].item() == ei.item()
     with pytest.raises(ValueError, match="unknown engine"):
         tlearn.make_energy_fn(model, y_t, engine="ekf")
     # GIEKF trains through the same loop

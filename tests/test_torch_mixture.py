@@ -139,7 +139,8 @@ def test_separate_matches_jax_pallas(sources):
 
 def test_separate_through_the_registry(sources):
     """Any other engine/backend goes through ``registry.infer``; without
-    true sources there is no SNR; the MC read-out defaults to seed 0."""
+    true sources there is no SNR; the MC read-out defaults to seed 0.  The
+    default engine is IHGP, held against JAX's ``separate()`` (rtol 1e-8)."""
     jms, jps, parts = sources
     tms, tps = zip(*[_port(m, p) for m, p in zip(jms, jps)])
     y = torch.tensor(parts.sum(-1)[:48])
@@ -150,5 +151,10 @@ def test_separate_through_the_registry(sources):
     assert r.snr is None and r.sources.shape == (48, 2)
     assert r.result.sites.ttau.shape == (48, 8)
     np.testing.assert_array_equal(_np(r.sources), _np(r2.sources))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsep.separate(tms, tps, y, device="cpu")  # default engine: ihgp
+    # the default engine, IHGP, against JAX's separate() with its defaults
+    r_t = tsep.separate(tms, tps, y, device="cpu", ep_itts=2, n_samples=0)
+    r_j = jsep.separate(jms, jps, jnp.asarray(_np(y)), ep_itts=2, unroll=1, n_samples=0)
+    assert r_t.sources.shape == (48, 2) and r_t.result.Eft.shape == (48, 8)
+    np.testing.assert_allclose(_np(r_t.sources), np.asarray(r_j.sources), rtol=1e-8,
+                               atol=1e-8 * np.abs(np.asarray(r_j.sources)).max())
+    np.testing.assert_allclose(_np(r_t.result.nlZ), np.asarray(r_j.result.nlZ), rtol=1e-8)

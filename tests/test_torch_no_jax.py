@@ -19,12 +19,12 @@ import torch
 import nsgp_tpu_torch
 from nsgp_tpu_torch import convert
 from nsgp_tpu_torch.apps import missing_data, source_sep
-from nsgp_tpu_torch.inference import batched, giekf, hmc, learn, registry
+from nsgp_tpu_torch.inference import batched, giekf, hmc, ihgp, learn, registry
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models import mixture
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior, stack_params
-from nsgp_tpu_torch.ops import (_build, bscan, cubature, fused_kalman, kalman, kernels, moments,
-                                pscan, ssm)
+from nsgp_tpu_torch.ops import (_build, bscan, cubature, dare, fused_kalman, kalman, kernels,
+                                moments, pscan, ssm)
 from nsgp_tpu_torch.utils import device, metrics, precision
 
 model, params = convert.load_trained(
@@ -33,8 +33,16 @@ y, _, _ = sample_prior(torch.Generator().manual_seed(0), model, params, 64)
 for backend in ("seq", "fused"):
     r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, backend=backend), device="cpu")
     assert torch.isfinite(r.nlZ).all()
-r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, parallel=True, chunk=16), device="cpu")
-assert torch.isfinite(r.nlZ).all()
+for chunk in (16, 0):
+    r = ep_infer(model, params, y, None, EPConfig(ep_itts=2, parallel=True, chunk=chunk,
+                                                  jitter=1e-9), device="cpu")
+    assert torch.isfinite(r.nlZ).all()
+for kw in ({}, {"parallel": True, "chunk": 24}, {"parallel": True, "chunk": 0}):
+    r = ihgp.ihgp_infer(model, params, y[:40], None, ihgp.IHGPConfig(ep_itts=2, **kw),
+                        device="cpu")
+    assert torch.isfinite(r.nlZ).all() and (r.Varft > 0).all()
+assert torch.isfinite(registry.energy("ihgp", model, params, y[:12], device="cpu"))
+assert torch.isfinite(dare.dare_filter(torch.eye(2) * 0.9, torch.ones(2), torch.eye(2), 0.1)).all()
 ssm_ = model.build_ssm(params)
 tt = torch.rand(40, ssm_.num_channels, dtype=torch.float64)
 blocked = fused_kalman.fused_fwd_blocked_plain(tt, tt, ssm_.A, ssm_.Q, ssm_.Pinf, ssm_.H, chunk=16)
