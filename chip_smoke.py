@@ -71,6 +71,23 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    against the single-file engine; the launch counters read 0 for K1-K4
    over 8c-8e.
    Its line ``{"ihgp": ...}`` follows the training line.
+9. the denoising path (``denoise_phase``): a raw signal to a trained model to
+   denoised speech (experiments/denoising.py:55-160 on a seeded draw from the
+   trained speech model's prior of speech0_female's length).  (a) the
+   pretraining pipeline at T=4096 float64, exp and matern32, card vs CPU: end
+   to end (the Whittle fit cut to 2 levels of 100 steps, one NMF start),
+   reported with the CPU against itself on a 1e-14 perturbation of y as its
+   yardstick; held at 1e-8: stages 2-5 from one stage-1 fit, and stage 1 at
+   its first level with its moves; (b) the pipeline at full width
+   (T=23 296, the pipeline's own steps), float32 then float64 on the card,
+   timed by stage, Adam steps, CUDA kernels a step, peak memory and
+   results/train_speech.json's columns; (c) the denoising protocol on (b)'s
+   float32 model at the five noise levels (``denoise(backend="fused")``, 30
+   sweeps, 200 draws, the time-varying Wiener read-out and its blend arms,
+   the stationary Wiener baseline, SNR, log-spectral SNR, STOI, fwSegSNR),
+   launch counters over one call (K3 1, K2 30, K1 29), and snr_out > snr_in
+   at every level; (d) ``denoise`` at T=2048 float64, card (kernels) vs CPU
+   (plain versions).  Its line ``{"denoise": ...}`` follows the IHGP line.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path, max abs error vs plain, its time at the path's shape beside the
@@ -83,6 +100,7 @@ a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -170,6 +188,36 @@ T_IH_PARITY, T_IH_EP, T_IH_TRAIN, T_IH_CUT = 1024, 256, 16_000, 50_000
 T_IH_MIX, T_IH_MIX_F64, T_IH_BATCH, BF_IH = 2048, 256, 4096, 3
 IH_SWEEP1_LIMIT_S = 150.0
 TOL_IH_GRAD = 1e-9
+
+# The denoising path (phase 9): experiments/denoising.py:55-160 on one speech
+# file at the settings of results/noise_reduction_speech.json (30 EP sweeps,
+# fraction 0.75, damping 0.1, 200 Monte-Carlo draws, the time-varying Wiener
+# read-out at stat_floor 1.0 and its blend arms) and results/train_speech.json
+# (D=16, N=3, exp/matern52, 'sq', p_cubature 9, fs 16 000, the pipeline's own
+# steps).  No audio in the repo: the clean signal is a seeded numpy draw from
+# trained_speech0_female_exp.npz's prior of speech0_female's length at unit
+# variance, and as in the reference protocol the signal trained on is the one
+# denoised, padded with NaN to the corpus length.
+T_SPEECH, T_SPEECH_PAD, FS_SPEECH = 23_296, 24_576, 16_000
+NOISE_LEVELS = (0.01, 0.05, 0.1, 0.3, 0.5)  # experiments/protocol.py:31
+DN_KW = dict(ep_itts=30, ep_fraction=0.75, damping=(0.1,), backend="fused")
+N_MC, STAT_FLOOR, BLEND_ARMS = 200, 1.0, (0.0, 0.25, 0.5, 0.75, 1.0)
+# 9a: the pipeline card vs CPU at float64 at T = 4096, the Whittle fit cut from
+# 3 levels of 400 steps to 2 of 100 for the CPU's time (GPPAD, NMF and SE-GP at
+# their own counts, one NMF start given to both); its yardstick is the CPU
+# against itself on y * (1 + PERTURB * xi), xi a seeded standard normal draw
+# (a uniform scale would vanish in the pipeline's normalisation).  9d: denoise
+# at T = 2048, no draws.
+T_PIPE_PARITY, PIPE_PARITY_FB, PERTURB = 4096, dict(num_levels=2, steps_per_level=100), 1e-14
+T_DN_PARITY = 2048
+# The stages of pretrain.pipeline.train_gtnmf_fixed_params as it calls them:
+# (stage, the pipeline's name of the module, function).
+PIPELINE_STAGES = (("whittle", "spectral", "fit_probstft_staged"),
+                   ("filterbank", "fb_mod", "build_filterbank"),
+                   ("filterbank", "fb_mod", "steady_filterbank"),
+                   ("gppad", "gppad", "demodulate_channels"),
+                   ("nmf", "nmf", "nmf_fp"),
+                   ("segp", "segp", "fit_segp"))
 
 # Kernel vs plain, relative to the reference output's max |value|.
 # float64: the two differ only in summation order and FMA contraction
@@ -1035,6 +1083,323 @@ def ihgp_phase(smi, dev):
     return out
 
 
+def speech_signal(T, seed):
+    """A seeded numpy draw of T samples from the trained speech model's prior,
+    at unit variance (the reference's y_norm)."""
+    import torch
+
+    from nsgp_tpu_torch.convert import load_trained
+
+    model, params = load_trained(os.path.join(ROOT, SPEECH), device="cpu", dtype=torch.float64)
+    y = prior_signal(np.random.default_rng(seed), model, params, T)
+    return y / y.std()
+
+
+@contextlib.contextmanager
+def pipeline_stages(fit=None):
+    """Record the pipeline's stages as it calls them: seconds (synchronised at
+    both ends) and Adam steps by stage, and the Whittle fit's moves of dead or
+    duplicate components.  With ``fit``, stage 1 returns that fit on the
+    pipeline's device: stages 2-5 from a common start."""
+    import torch
+
+    from nsgp_tpu_torch.pretrain import pipeline, spectral
+    from nsgp_tpu_torch.pretrain.adam import adam
+
+    rec = {"s": {}, "adam_steps": {}, "moves": []}
+    saved = []
+
+    def patch(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for stage, modname, fname in PIPELINE_STAGES:
+        mod = getattr(pipeline, modname)
+        inner = getattr(mod, fname)
+        if stage == "whittle" and fit is not None:
+            inner = lambda y, *a, **k: fit._replace(**{f: getattr(fit, f).to(y.device)
+                                                       for f in fit._fields})
+
+        def timed(*a, _inner=inner, _stage=stage, **k):
+            sync()
+            t0, n0 = time.perf_counter(), adam.steps
+            out = _inner(*a, **k)
+            sync()
+            rec["s"][_stage] = rec["s"].get(_stage, 0.0) + time.perf_counter() - t0
+            rec["adam_steps"][_stage] = rec["adam_steps"].get(_stage, 0) + adam.steps - n0
+            return out
+
+        patch(mod, fname, timed)
+    reassign = spectral._reassign_dead
+
+    def counted(*a):
+        p, moved = reassign(*a)
+        rec["moves"].append(moved)
+        return p, moved
+
+    patch(spectral, "_reassign_dead", counted)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def trained_gap(a, b) -> float:
+    """Largest relative gap over every field of two TrainedModels: the
+    parameters, the envelopes, H and the stage-1 fit."""
+    from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES
+
+    pairs = ([(getattr(a.params, k), getattr(b.params, k)) for k in PARAM_NAMES]
+             + [(a.envelopes, b.envelopes), (a.H, b.H)]
+             + [(getattr(a.fit, f), getattr(b.fit, f)) for f in a.fit._fields])
+    return max(rel_err(x.cpu(), y.cpu()) for x, y in pairs)
+
+
+def train_columns(tm, fs):
+    """results/train_speech.json's columns (experiments/train_corpus.py:98-108)."""
+    om = np.sort(tm.params.omega.double().cpu().numpy()) * fs / (2 * np.pi)
+    return dict(omega_hz_min=round(float(om[0]), 1), omega_hz_max=round(float(om[-1]), 1),
+                n_distinct_omega=int(np.sum(np.diff(om, prepend=-1.0) > 1.0)),
+                whittle_obj=round(float(tm.fit.obj), 4))
+
+
+def kernels_per_step(fn, steps):
+    """(CUDA kernels, device-busy us) per step of ``fn()``, which takes
+    ``steps`` steps, under torch.profiler after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(ev.count for ev in cuda) / steps,
+            sum(ev.self_device_time_total for ev in cuda) / steps)
+
+
+def denoise_phase(smi, dev):
+    """Phase 9: a raw signal to a trained model to denoised speech on the
+    card ``dev``: the pretraining pipeline (plain torch; JAX's reaches no
+    Pallas kernel) and the denoising protocol, whose EP runs K3, K2 and K1.
+    Returns the numbers of the ``denoise`` line."""
+    import torch
+
+    from nsgp_tpu_torch.apps.denoise import denoise, stationary_spectrum, tv_wiener
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+    from nsgp_tpu_torch.pretrain import gppad, nmf, pipeline, segp, spectral
+    from nsgp_tpu_torch.pretrain.filterbank import fft_filterbank
+    from nsgp_tpu_torch.utils.metrics import log_spec_snr_db, rmse, snr_db
+    from nsgp_tpu_torch.utils.speech_quality import fw_seg_snr
+    from nsgp_tpu_torch.utils.stoi import stoi
+
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    train = lambda y, device, **kw: pipeline.train_gtnmf_fixed_params(
+        y, D=16, N=3, fs=float(FS_SPEECH), device=device, **kw)
+
+    # ---- 9a: the pipeline, card vs CPU, float64 --------------------------------------
+    y_a = torch.tensor(speech_signal(T_PIPE_PARITY, 500))
+    wobble = torch.tensor(np.random.default_rng(501).normal(size=T_PIPE_PARITY))
+    gen = torch.Generator().manual_seed(1)
+    init = tuple(torch.rand(shape, generator=gen, dtype=torch.float64) + 0.5
+                 for shape in ((8, T_PIPE_PARITY, 3), (8, 16, 3)))
+    out["parity"] = {}
+    for kernel in ("exp", "matern32"):
+        kw = dict(kernel1=kernel, filterbank_kwargs=PIPE_PARITY_FB, nmf_init=init)
+        runs = {}
+        for label, y, device in (("card", y_a, None), ("cpu", y_a, "cpu"),
+                                 ("cpu_perturbed", y_a * (1.0 + PERTURB * wobble), "cpu")):
+            with pipeline_stages() as rec:
+                tm, secs = host_s(lambda: train(y, device, **kw))
+            runs[label] = (tm, rec["moves"], secs)
+        require(runs["card"][0].params.W.device.type == dev.type, "the pipeline did not run on "
+                "the card")
+        gap = trained_gap(runs["card"][0], runs["cpu"][0])
+        yardstick = trained_gap(runs["cpu_perturbed"][0], runs["cpu"][0])
+        same_moves = runs["card"][1] == runs["cpu"][1]
+        # stages 2-5 (filterbank, GPPAD, NMF, SE-GP) from the CPU's stage-1 fit
+        fit_cpu = runs["cpu"][0].fit
+        tail = {}
+        for label, device in (("card", None), ("cpu", "cpu")):
+            with pipeline_stages(fit=fit_cpu):
+                tail[label] = train(y_a, device, **kw)
+        tail_gap = trained_gap(tail["card"], tail["cpu"])
+        # stage 1 alone at its first level (window 256, 100 steps, its
+        # reassignments and re-fits), where a perturbation of y stays at rounding
+        lvl1 = {}
+        for label, device in (("card", None), ("cpu", "cpu")):
+            with pipeline_stages() as rec:
+                lvl1[label] = (spectral.fit_probstft(y_a, 16, kernel=kernel, num_levels=1,
+                                                     min_win=256, max_win=256,
+                                                     steps_per_level=100, device=device),
+                               rec["moves"])
+        lvl1_gap = max(rel_err(getattr(lvl1["card"][0], f).cpu(), getattr(lvl1["cpu"][0], f))
+                       for f in lvl1["cpu"][0]._fields)
+        lvl1_moves = lvl1["card"][1] == lvl1["cpu"][1]
+        log(f"phase9a pipeline {kernel} T={T_PIPE_PARITY} f64 (Whittle {PIPE_PARITY_FB}): "
+            f"end to end card vs cpu rel {gap:.3e}, moves card "
+            f"{runs['card'][1]} cpu {runs['cpu'][1]} (equal {same_moves}); the cpu against "
+            f"itself on y*(1+{PERTURB:g}*N(0,1)) rel {yardstick:.3e} (bar {TOL_TRAIN:g}: "
+            f"{'met' if gap <= TOL_TRAIN else 'missed'}); stages 2-5 from one stage-1 fit "
+            f"card vs cpu rel {tail_gap:.3e}, stage 1 at its first level rel {lvl1_gap:.3e} "
+            f"(tol {TOL_TRAIN:g}) with moves {lvl1['cpu'][1]} on both {lvl1_moves}; card "
+            f"{runs['card'][2]:.1f} s, cpu {runs['cpu'][2]:.1f} s")
+        require(tail_gap <= TOL_TRAIN and lvl1_gap <= TOL_TRAIN and lvl1_moves,
+                f"the pipeline's stages ({kernel}) on the card disagree with the CPU")
+        out["parity"][kernel] = dict(end_to_end_rel=gap, moves_card=runs["card"][1],
+                                     moves_cpu=runs["cpu"][1], cpu_perturbed_rel=yardstick,
+                                     stages_2_5_rel=tail_gap, stage1_level1_rel=lvl1_gap,
+                                     stage1_level1_moves=lvl1["cpu"][1],
+                                     card_s=runs["card"][2],
+                                     cpu_s=runs["cpu"][2])
+    t_9a = time.perf_counter() - t_phase
+
+    # ---- 9b: the pipeline at full width, float32 then float64 ------------------------
+    y_np = speech_signal(T_SPEECH, 501)
+    y32 = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with pipeline_stages() as rec32:
+        tm32, s32 = host_s(lambda: train(y32, None, kernel1="exp"))
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    cols32 = train_columns(tm32, FS_SPEECH)
+    log(f"phase9b train_gtnmf_fixed_params exp T={T_SPEECH} f32: {s32:.2f} s; by stage (s) "
+        f"{ {k: round(v, 3) for k, v in rec32['s'].items()} }; Adam steps {rec32['adam_steps']}; "
+        f"moves {rec32['moves']}; peak {peak_mib:.0f} MiB; {cols32}")
+    with pipeline_stages() as rec64:
+        tm64, s64 = host_s(lambda: train(torch.tensor(y_np, device=dev), None, kernel1="exp"))
+    cols64 = train_columns(tm64, FS_SPEECH)
+    gap64 = trained_gap(tm32, tm64)
+    finite = all(bool(torch.isfinite(x).all()) for tm in (tm32, tm64)
+                 for x in tm.params.leaves() + (tm.envelopes, tm.H))
+    log(f"phase9b the same in f64 on the card: {s64:.2f} s; by stage (s) "
+        f"{ {k: round(v, 3) for k, v in rec64['s'].items()} }; moves {rec64['moves']}; {cols64}; "
+        f"f32 vs f64 rel gap {gap64:.3e} (no bar: reassignment is discrete); finite {finite}")
+    require(finite, "the pipeline gave non-finite values")
+    prof = {
+        "whittle": (lambda: spectral.fit_probstft(y32, 16, num_levels=1, min_win=4096,
+                                                  max_win=4096, steps_per_level=20,
+                                                  reassign=False), 20),
+        "gppad": (lambda: gppad.demodulate_channels(tm32.envelopes, 1600.0, 20), 20),
+        "nmf": (lambda: nmf.nmf_fp(tm32.envelopes, 3, 20, 8), 20),
+        "segp": (lambda: segp.fit_segp(tm32.H.T, 20), 20),
+    }
+    per_step = {k: kernels_per_step(*v) for k, v in prof.items()}
+    log("phase9b CUDA kernels and device-busy us per Adam step (NMF: per iteration) at T="
+        f"{T_SPEECH} f32: " + ", ".join(f"{k} {n:.1f} kernels {b:.1f} us"
+                                        for k, (n, b) in per_step.items()))
+    out["pipeline"] = dict(T=T_SPEECH, f32=dict(s=s32, stage_s=rec32["s"],
+                                                adam_steps=rec32["adam_steps"],
+                                                moves=rec32["moves"], peak_mib=peak_mib, **cols32),
+                           f64=dict(s=s64, stage_s=rec64["s"], moves=rec64["moves"], **cols64),
+                           f32_vs_f64_rel=gap64,
+                           per_step={k: dict(kernels=n, busy_us=b)
+                                     for k, (n, b) in per_step.items()})
+    t_9b = time.perf_counter() - t_phase - t_9a
+
+    # ---- 9c: the denoising protocol on 9b's float32 model ---------------------------------
+    model, params, wfit = tm32.model, tm32.params, tm32.fit
+    w_len = wfit.lengthscales(model.kernel1)
+    w_noise = float(torch.clamp_min(wfit.noise, 1e-6))
+    S_stat = stationary_spectrum(model.kernel1, wfit.sigma2, w_len, wfit.omega,
+                                 dtype=torch.float32)
+    host = lambda x: x.double().cpu().numpy()
+    rows, launches = [], None
+    for i, v in enumerate(NOISE_LEVELS):
+        xi = np.random.default_rng(600 + i).normal(size=T_SPEECH)
+        y_noisy = y32 + torch.tensor(np.sqrt(v) * xi, dtype=torch.float32, device=dev)
+        ypad = torch.full((T_SPEECH_PAD,), float("nan"), dtype=torch.float32, device=dev)
+        ypad[:T_SPEECH] = y_noisy
+        call = lambda: denoise(model, params, ypad, float(v), n_samples=N_MC,
+                               generator=torch.Generator(dev).manual_seed(i), **DN_KW)
+        _, cold = host_s(call)
+        if i == 0:
+            fk.reset_launches()
+        r, warm = host_s(call)
+        if i == 0:
+            launches = counts()
+        y_mc = r.y_hat[:T_SPEECH]
+        Eft = r.result.Eft[:T_SPEECH]
+        wiener = lambda kap: tv_wiener(model, params, Eft, y_noisy, float(v), stat_spec=S_stat,
+                                       stat_floor=kap)
+        y_hat = wiener(STAT_FLOOR)
+        y_wiener = fft_filterbank(wfit.sigma2, w_len, wfit.omega, y_noisy,
+                                  kernel=model.kernel1, noise=v + w_noise).real.sum(-1)
+        clean = host(y32)
+        st = lambda est: round(stoi(clean, host(est), FS_SPEECH), 4)
+        fw = lambda est: round(float(fw_seg_snr(y32, est, FS_SPEECH)), 3)
+        ls = lambda est: float(log_spec_snr_db(y32, est))
+        row = dict(noise_var=v, snr_in_db=float(snr_db(y32, y_noisy)),
+                   snr_out_db=float(snr_db(y32, y_hat)), snr_mc_db=float(snr_db(y32, y_mc)),
+                   snr_wiener_db=float(snr_db(y32, y_wiener)), rmse=float(rmse(y32, y_hat)),
+                   log_spec_snr_out_db=ls(y_hat), log_spec_snr_mc_db=ls(y_mc),
+                   log_spec_snr_wiener_db=ls(y_wiener),
+                   stoi_in=st(y_noisy), stoi_out=st(y_hat), stoi_mc=st(y_mc),
+                   stoi_wiener=st(y_wiener),
+                   fwsegsnr_in_db=fw(y_noisy), fwsegsnr_out_db=fw(y_hat),
+                   fwsegsnr_mc_db=fw(y_mc), fwsegsnr_wiener_db=fw(y_wiener),
+                   seconds_cold=cold, seconds_warm=warm, stat_floor=STAT_FLOOR,
+                   blend={str(k): dict(snr_db=float(snr_db(y32, wiener(k))), stoi=st(wiener(k)),
+                                       log_spec_snr_db=ls(wiener(k)),
+                                       fwsegsnr_db=fw(wiener(k))) for k in BLEND_ARMS})
+        rows.append(row)
+        log(f"phase9c v={v}: " + " ".join(f"{k}={val:.4g}" for k, val in row.items()
+                                           if k not in ("blend", "noise_var", "stat_floor")))
+        require(r.result.Eft.device.type == dev.type, "denoise did not run on the card")
+        require(all(math.isfinite(x) for x in (row["snr_out_db"], row["snr_mc_db"],
+                                               row["log_spec_snr_out_db"])),
+                f"non-finite denoising metrics at v={v}")
+    want = {"fused_adf": 1, "fused_bwd": DN_KW["ep_itts"], "fused_fwd": DN_KW["ep_itts"] - 1,
+            "fused_adf_mb": 0}
+    log(f"phase9c launches in one denoise call: {launches} (want {want})")
+    require(launches == want, f"launch counts {launches} != {want}: the denoising path missed "
+            f"a kernel")
+    below = [r["noise_var"] for r in rows if not r["snr_out_db"] > r["snr_in_db"]]
+    require(not below, f"snr_out_db <= snr_in_db at noise levels {below}")
+    out["protocol"] = dict(T=T_SPEECH, pad_T=T_SPEECH_PAD, launches=launches, rows=rows)
+    t_9c = time.perf_counter() - t_phase - t_9a - t_9b
+
+    # ---- 9d: the application, card vs CPU, float64 ------------------------------------------
+    y_c = torch.tensor(y_np[:T_DN_PARITY])
+    v = NOISE_LEVELS[1]
+    y_n = y_c + torch.tensor(np.sqrt(v) * np.random.default_rng(700).normal(size=T_DN_PARITY))
+    dn = lambda device, backend: denoise(tm64.model, tm64.params, y_n, v, n_samples=0,
+                                         device=device, **dict(DN_KW, backend=backend))
+    (rc, card_s), (rh, cpu_s) = (host_s(lambda: dn(d, "fused")) for d in (None, "cpu"))
+    rs = dn("cpu", "seq")
+    S64 = stationary_spectrum(tm64.model.kernel1, tm64.fit.sigma2.cpu(),
+                              tm64.fit.lengthscales(tm64.model.kernel1).cpu(),
+                              tm64.fit.omega.cpu(), dtype=torch.float64)
+    read = lambda r: tv_wiener(tm64.model, tm64.params.on(r.y_hat.device), r.result.Eft,
+                               y_n.to(r.y_hat.device), v, stat_spec=S64.to(r.y_hat.device),
+                               stat_floor=STAT_FLOOR)
+    wc, wh = read(rc), read(rh)
+    met = lambda w: torch.stack([fw_seg_snr(y_c.to(w.device), w, FS_SPEECH),
+                                 log_spec_snr_db(y_c.to(w.device), w)])
+    dn_rel = max(rel_err(a.cpu(), b) for a, b in (
+        (rc.result.Eft, rh.result.Eft), (rc.result.Varft, rh.result.Varft),
+        (rc.y_hat, rh.y_hat), (wc, wh), (met(wc), met(wh))))
+    seq_rel = rel_err(rs.result.Eft, rh.result.Eft)
+    log(f"phase9d denoise T={T_DN_PARITY} f64 v={v}: card (kernels) vs cpu (plain versions) "
+        f"rel {dn_rel:.3e} over Eft, Varft, the read-outs, fwSegSNR and log-spectral SNR "
+        f"(tol {TOL_TRAIN:g}); card {card_s:.2f} s, cpu {cpu_s:.2f} s; the cpu's seq backend "
+        f"(the reference's last-site bookkeeping) against fused: Eft rel {seq_rel:.3e}")
+    require(dn_rel <= TOL_TRAIN, "denoise on the card disagrees with the CPU")
+    out["app_parity"] = dict(T=T_DN_PARITY, rel=dn_rel, seq_vs_fused_eft_rel=seq_rel,
+                             card_s=card_s, cpu_s=cpu_s)
+    out["phase9_s"] = dict(total=time.perf_counter() - t_phase, a=t_9a, b=t_9b, c=t_9c)
+    log(f"phase9 done in {out['phase9_s']['total']:.0f} s (9a {t_9a:.0f}, 9b {t_9b:.0f}, "
+        f"9c {t_9c:.0f})")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nsgp_tpu_torch")):
         raise RuntimeError("chip_smoke.py must run from a checkout of the repository")
@@ -1322,6 +1687,9 @@ def main() -> int:
 
     # ---- phase 8: the IHGP path -----------------------------------------------------
     ihgp_numbers = ihgp_phase(smi, dev)
+
+    # ---- phase 9: the denoising path ------------------------------------------------
+    denoise_numbers = denoise_phase(smi, dev)
     log(f"all phases done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- the kernels line --------------------------------------------------------
@@ -1370,6 +1738,7 @@ def main() -> int:
     ]
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
+    print(json.dumps({"denoise": denoise_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

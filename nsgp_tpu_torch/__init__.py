@@ -16,9 +16,15 @@ same path:
                   EP and IHGP over files (``ep_infer_batch``,
                   ``ihgp_infer_batch``); GIEKF; learning and HMC/VI; the
                   engine registry.
-- ``apps``      : missing-data synthesis (``fill_gaps``, ``fill_gaps_batch``)
-                  and source separation (``separate``).
-- ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR.
+- ``pretrain``  : a trained model from a raw signal
+                  (``pipeline.train_gtnmf_fixed_params``): the Whittle fit of
+                  the spectral-mixture filterbank, the steady Kalman
+                  filterbank, GPPAD, NMF, SE-GP fits; the AR(2) filterbank.
+- ``apps``      : missing-data synthesis (``fill_gaps``, ``fill_gaps_batch``),
+                  source separation (``separate``), denoising (``denoise``,
+                  ``tv_wiener``).
+- ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR /
+                  log-spectral SNR, fwSegSNR and STOI, WAV IO.
 - ``convert``   : parameters from numpy / trained ``.npz`` artifacts.
 
 It imports torch and numpy only, never jax.  Kernels are compiled with
@@ -29,4 +35,4 @@ their work on the card unless the caller passes ``device="cpu"``
 
 __version__ = "0.1.0"
 
-from nsgp_tpu_torch import apps, inference, models, ops, utils  # noqa: F401
+from nsgp_tpu_torch import apps, inference, models, ops, pretrain, utils  # noqa: F401

@@ -1,3 +1,3 @@
-"""Applications: missing-data synthesis and source separation."""
+"""Applications: missing-data synthesis, source separation, denoising."""
 
-from nsgp_tpu_torch.apps import missing_data, source_sep  # noqa: F401
+from nsgp_tpu_torch.apps import denoise, missing_data, source_sep  # noqa: F401

@@ -4,9 +4,10 @@
 (e.g. ``{k: np.asarray(v) for k, v in jax_params._asdict().items()}``), with
 or without a leading file axis (a stacked JAX ``GTNMFParams`` gives the port's
 stacked parameters); ``load_trained`` reads a trained ``.npz`` written by
-``nsgp_tpu.pretrain.pipeline.save_trained`` (the same keys
-``pipeline.load_trained`` reads), ``load_trained_batch`` a list of them as
-one model and stacked parameters.  None imports jax.
+either package's ``pretrain.pipeline.save_trained`` (the keys JAX's
+``pipeline.load_trained`` reads; ``full=True`` gives the ``TrainedModel`` with
+its stage-1 fit), ``load_trained_batch`` a list of them as one model and
+stacked parameters.  None imports jax.
 
 Tensors are placed by ``utils.device.resolve_device``: on the card by default,
 on the CPU only when asked (``device="cpu"``).
@@ -33,8 +34,11 @@ def params_from_numpy(arrays, device=None, dtype=None) -> GTNMFParams:
     })
 
 
-def load_trained(path, device=None, dtype=None):
-    """Load a trained artifact as ``(GTNMFModel, GTNMFParams)``."""
+def load_trained(path, device=None, dtype=None, full: bool = False):
+    """Load a trained artifact as ``(GTNMFModel, GTNMFParams)``; with
+    ``full=True`` as ``pretrain.pipeline.TrainedModel``, its stage-1
+    ``FilterbankFit`` from the ``fb_*`` keys (None on artifacts without them),
+    ``normaliser`` and ``fs`` (``nsgp_tpu.pretrain.pipeline.load_trained``)."""
     device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         model = GTNMFModel(
@@ -43,7 +47,22 @@ def load_trained(path, device=None, dtype=None):
             variant=str(z["variant"]), p_cubature=int(z["p_cubature"]),
         )
         params = params_from_numpy({k: z[k] for k in PARAM_NAMES}, device, dtype)
-    return model, params
+        if not full:
+            return model, params
+        from nsgp_tpu_torch.pretrain.pipeline import TrainedModel
+        from nsgp_tpu_torch.pretrain.spectral import FilterbankFit
+
+        t = lambda k: torch.as_tensor(np.array(z[k]), dtype=dtype, device=device)
+        fit = None
+        if "fb_sigma2" in z:
+            sigma2 = t("fb_sigma2")
+            fit = FilterbankFit(sigma2=sigma2, lam=t("fb_lam"), omega=t("fb_omega"),
+                                noise=t("fb_noise"), obj=sigma2.new_zeros(()))
+        return TrainedModel(
+            model=model, params=params, envelopes=None, H=None, fit=fit,
+            normaliser=float(z["normaliser"]) if "normaliser" in z else 1.0,
+            fs=float(z["fs"]) if "fs" in z else 16000.0,
+        )
 
 
 def load_trained_batch(paths, device=None, dtype=None):

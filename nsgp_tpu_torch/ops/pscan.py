@@ -195,6 +195,16 @@ def associative_scan(combine, elems, reverse: bool = False):
     return out
 
 
+def affine_combine(a, b):
+    """Compose two affine maps x -> M x + c, ``a`` applied first:
+    (M_b M_a, M_b c_a + c_b).  Under ``reverse`` (``a`` the later suffix) the
+    same code composes a backward recursion, as JAX's two combines of
+    ``pretrain/filterbank.py`` do."""
+    Ma, ca = a
+    Mb, cb = b
+    return Mb @ Ma, _mv(Mb, ca) + cb
+
+
 def parallel_filter_with_sites(ssm: BlockSSM, sites: Sites):
     """O(log T)-depth forward filter with fixed EP sites: filtered
     (ms (T, C, bs), Ps (T, C, bs, bs)), as ``kalman.filter_with_sites``."""

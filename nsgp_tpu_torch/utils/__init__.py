@@ -1,3 +1,5 @@
-"""Utilities: matmul-precision guard, device rule, metrics."""
+"""Utilities: matmul-precision guard, device rule, metrics, speech quality
+(fwSegSNR, STOI), WAV IO."""
 
-from nsgp_tpu_torch.utils import device, metrics, precision  # noqa: F401
+from nsgp_tpu_torch.utils import (  # noqa: F401
+    audio, device, metrics, precision, speech_quality, stoi)

@@ -1,7 +1,10 @@
-"""Evaluation metrics: RMSE and SNR, optionally over a mask.
+"""Evaluation metrics: RMSE, SNR, log-spectrogram SNR with loudness floor.
 
-Port of ``rmse`` and ``snr_db`` of ``nsgp_tpu/utils/metrics.py``.  A leading
-file axis is reduced per file (the last axis is time).
+Port of ``nsgp_tpu/utils/metrics.py`` (ref demo_stationary_filterbank.m:
+204-226, missing_data_music_results.m:26-37, prob_filterbank/loud_floor.m).
+``rmse`` and ``snr_db`` reduce a leading file axis per file (the last axis is
+time); the spectrogram metrics take one signal.  Everything runs where its
+tensors are.
 """
 
 from __future__ import annotations
@@ -24,3 +27,33 @@ def snr_db(clean, estimate, mask=None):
         err = torch.where(mask, err, torch.zeros_like(err))
         sig = torch.where(mask, sig, torch.zeros_like(sig))
     return 10.0 * torch.log10(sig.sum(-1) / torch.clamp_min(err.sum(-1), 1e-300))
+
+
+def loud_floor(S, floor_db: float = -80.0):
+    """Floor a power spectrogram before taking logs
+    (ref prob_filterbank/loud_floor.m)."""
+    return torch.maximum(S, S.max() * 10.0 ** (floor_db / 10.0))
+
+
+def frames(y, nwin: int, hop: int):
+    """Frame indices (nfrm, nwin) of the whole hops of y (at least one)."""
+    nfrm = max(1, (y.shape[0] - nwin) // hop + 1)
+    return (torch.arange(nwin, device=y.device)[None, :]
+            + hop * torch.arange(nfrm, device=y.device)[:, None])
+
+
+def _spectrogram(y, nwin: int = 256, hop: int = 128):
+    """|rfft|^2 of the symmetric-Hann-windowed frames (``jnp.hanning``)."""
+    win = torch.hann_window(nwin, periodic=False, dtype=y.dtype, device=y.device)
+    return torch.fft.rfft(y[frames(y, nwin, hop)] * win[None], dim=-1).abs() ** 2
+
+
+def log_spec_snr_db(clean, estimate, nwin: int = 256, hop: int = 128,
+                    floor_db: float = -80.0):
+    """Log-spectrogram SNR with loudness floor
+    (ref demo_stationary_filterbank.m:204-226)."""
+    Sc = torch.log(loud_floor(_spectrogram(clean, nwin, hop), floor_db))
+    Se = torch.log(loud_floor(_spectrogram(estimate, nwin, hop), floor_db))
+    num = torch.sum((Sc - Sc.mean()) ** 2)
+    den = torch.clamp_min(torch.sum((Sc - Se) ** 2), 1e-300)
+    return 10.0 * torch.log10(num / den)

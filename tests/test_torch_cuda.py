@@ -623,3 +623,69 @@ def test_ihgp_energy_gradient_card_matches_cpu(cuda):
     card = _grads(energy, params, cuda)
     assert all(bool(torch.isfinite(g).all()) for g in card)
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
+
+
+def _speechlike_signal(T, seed=21):
+    """Narrow-band noise at four centres under a slow positive envelope."""
+    rng = np.random.default_rng(seed)
+    w = np.fft.rfftfreq(T) * 2 * np.pi
+    y = 0.1 * rng.normal(size=T)
+    for k, f in enumerate((0.3, 0.9, 1.7, 2.6)):
+        x = np.fft.irfft(np.fft.rfft(rng.normal(size=T)) * np.exp(-0.5 * ((w - f) / 0.01) ** 2), T)
+        y += x / x.std() * (1.0 + 0.5 * k)
+    env = np.convolve(rng.normal(size=T + 600), np.exp(-0.5 * (np.arange(-300, 301) / 150.0) ** 2),
+                      "valid")[:T]
+    return y * np.logaddexp(env / 10.0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["exp", "matern32"])
+def test_pretraining_pipeline_card_matches_cpu(cuda, kernel):
+    """``train_gtnmf_fixed_params`` at T = 1024 (D=4, N=2, the Whittle fit
+    cut to 2 levels of 40 steps, one NMF start given to both), float64: every
+    field of the trained model card vs CPU.  On this signal the fit is well
+    conditioned (a 1e-14 perturbation of y moves it by 1e-14)."""
+    from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES
+    from nsgp_tpu_torch.pretrain.pipeline import train_gtnmf_fixed_params
+
+    T = 1024
+    y = torch.tensor(_speechlike_signal(T))
+    gen = torch.Generator().manual_seed(0)
+    init = tuple(torch.rand(s, generator=gen, dtype=torch.float64) + 0.5
+                 for s in ((8, T, 2), (8, 4, 2)))
+    card, cpu = (train_gtnmf_fixed_params(
+        y, D=4, N=2, kernel1=kernel, fs=2000.0, nmf_init=init, device=d,
+        filterbank_kwargs=dict(num_levels=2, min_win=128, max_win=512, steps_per_level=40))
+        for d in (None, "cpu"))
+    assert card.H.device.type == "cuda"
+    pick = lambda tm: [getattr(tm.params, k) for k in PARAM_NAMES] + [tm.envelopes, tm.H] + list(
+        tm.fit)
+    assert _rel([x.cpu() for x in pick(card)], pick(cpu)) <= TRAIN_TOL
+
+
+@pytest.mark.cuda
+def test_denoise_card_matches_cpu(cuda):
+    """``denoise(backend="fused")`` (K3, K2, K1 on the card, their plain
+    versions on the CPU) at T = 512 with the trained speech model, float64,
+    and the time-varying Wiener read-out of its posterior."""
+    from pathlib import Path
+
+    from nsgp_tpu_torch.apps.denoise import denoise, stationary_spectrum, tv_wiener
+    from nsgp_tpu_torch.convert import load_trained
+
+    root = Path(__file__).resolve().parents[1]
+    tm = load_trained(root / "results" / "trained" / "speech" / "trained_speech0_female_exp.npz",
+                      device="cpu", dtype=torch.float64, full=True)
+    y, _, _ = sample_prior(torch.Generator().manual_seed(3), tm.model, tm.params, 512)
+    y = y / y.std() + 0.2 * torch.randn(512, generator=torch.Generator().manual_seed(4),
+                                        dtype=torch.float64)
+    S = stationary_spectrum("exp", tm.fit.sigma2, tm.fit.lengthscales("exp"), tm.fit.omega,
+                            dtype=torch.float64)
+    outs = []
+    for d in (None, "cpu"):
+        r = denoise(tm.model, tm.params, y, 0.04, n_samples=0, device=d, backend="fused",
+                    ep_itts=5, ep_fraction=0.75, damping=(0.1,))
+        w = tv_wiener(tm.model, tm.params.on(r.y_hat.device), r.result.Eft, y.to(r.y_hat.device),
+                      0.04, stat_spec=S.to(r.y_hat.device), stat_floor=1.0)
+        outs.append([r.result.Eft.cpu(), r.result.Varft.cpu(), r.y_hat.cpu(), w.cpu()])
+    assert _rel(*outs) <= TRAIN_TOL

@@ -1,5 +1,6 @@
-"""The port stands alone: importing and running ``nsgp_tpu_torch`` loads no
-jax and no ``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
+"""The port stands alone: importing and running ``nsgp_tpu_torch`` (inference,
+the pretraining pipeline and denoising among it) loads no jax and no
+``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
 outside a checkout, and imports neither package."""
 
 import ast
@@ -14,6 +15,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import sys
+
+
+class _Blocked:  # importing jax, jaxlib or the JAX package raises in this process
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "nsgp_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
 import numpy as np
 import torch
 import nsgp_tpu_torch
@@ -73,6 +84,23 @@ assert torch.isfinite(h.samples).all() and torch.isfinite(v.elbo_trace).all()
 e = registry.energy("giekf", model, params, y[:12], device="cpu")
 assert torch.isfinite(e) and torch.isfinite(giekf.giekf_infer(model, params, y[:12], None,
                                                              device="cpu").Eft).all()
+from nsgp_tpu_torch.apps import denoise
+from nsgp_tpu_torch.pretrain import ar2, filterbank, gppad, nmf, pipeline, segp, spectral
+from nsgp_tpu_torch.utils import audio, speech_quality, stoi
+ys = torch.tensor(np.sin(0.4 * np.arange(512)) + 0.3 * np.random.default_rng(0).normal(size=512))
+fit = spectral.fit_probstft(ys, 3, num_levels=1, min_win=64, max_win=64, steps_per_level=5,
+                            device="cpu")
+fb = filterbank.build_filterbank(fit.sigma2, fit.lengthscales("exp"), fit.omega, noise=0.1,
+                                 device="cpu")
+assert torch.isfinite(filterbank.steady_filterbank(fb, ys, device="cpu").lml)
+A = torch.rand(64, 3, dtype=torch.float64, generator=torch.Generator().manual_seed(0)) + 0.1
+assert torch.isfinite(nmf.nmf_fp(A, 2, 5, 2, device="cpu").cost)
+tm = pipeline.train_gtnmf_fixed_params(
+    ys, D=3, N=2, kernel1="exp", fs=1000.0, device="cpu",
+    filterbank_kwargs=dict(num_levels=2, min_win=64, max_win=128, steps_per_level=5))
+dn = denoise.denoise(tm.model, tm.params, ys[:64], 0.1, y_clean=ys[:64], n_samples=2,
+                     device="cpu", ep_itts=2, backend="fused")
+assert torch.isfinite(dn.snr_out) and torch.isfinite(speech_quality.fw_seg_snr(ys, ys * 0.9, 8000))
 try:
     device.resolve_device(None)
     assert torch.cuda.is_available()
