@@ -88,6 +88,19 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    launch counters over one call (K3 1, K2 30, K1 29), and snr_out > snr_in
    at every level; (d) ``denoise`` at T=2048 float64, card (kernels) vs CPU
    (plain versions).  Its line ``{"denoise": ...}`` follows the IHGP line.
+10. the experiment drivers (``experiments_phase``,
+   ``nsgp_tpu_torch.experiments``) on seeded numpy draws from the trained
+   models' priors written as 16 kHz wavs into ``build/chip_smoke_audio``:
+   (a) the missing-data corpus grid ``run_batched`` over the ten exp music
+   models at the reference protocol (T=53 248, itts 1 and 20, 200 draws),
+   launch counts over the call (K4 4, K2 42, K1 38); (b) ``run_file`` on one
+   file (K3) against a batched grid's row at 20 sweeps, n_samples=0, 1e-3 in
+   float32; (c) batched GIEKF through the driver and alone on three files
+   cut to T=1024, ms a step against one file alone, the last file against
+   ``giekf_infer`` (1e-3, float32) and card against CPU (1e-8, float64);
+   (d) the driver's IHGP arm on those files (K1-K4 launch 0 times); (e)
+   ``synthetic.run`` and ``train_hyperopt.run_file`` at toy sizes.  Its line
+   ``{"experiments": ...}`` follows the denoise line and lists every cut.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path, max abs error vs plain, its time at the path's shape beside the
@@ -218,6 +231,38 @@ PIPELINE_STAGES = (("whittle", "spectral", "fit_probstft_staged"),
                    ("gppad", "gppad", "demodulate_channels"),
                    ("nmf", "nmf", "nmf_fp"),
                    ("segp", "segp", "fit_segp"))
+
+# The experiment drivers (phase 10): experiments/missing_data.py's batched grid
+# at the reference protocol (D=16, N=3, exp/matern52, 'sq', the reference gap
+# tables, w_lik 1e-4, EP fraction 0.75 and damping 0.1, 200 Monte-Carlo draws)
+# over the ten trained exp music models, each on a seeded numpy draw from its
+# own prior written as a 16 kHz wav of the file's own length (no audio in the
+# repo) into a gitignored directory of the checkout; then its serial twin,
+# the batched GIEKF and IHGP arms on three files cut to T_CUT, and two more
+# drivers at toy sizes.  Every cut with its reason lands in the phase's line.
+EXP_MODELS = os.path.join("results", "trained", "music", "trained_{}_exp.npz")
+EXP_AUDIO = os.path.join("build", "chip_smoke_audio")
+GRID_ITTS, GRID_MC, SERIAL_ITTS = (1, 20), 200, 20
+T_CUT, CUT_FILES, GIEKF_ITTS, IHGP_ITTS = 1024, ("cello", "guitar", "ocarina"), (1, 2), (1, 3)
+T_SYN, SYN_ITTS, T_HO, HO_STEPS = 256, 2, 2048, 3
+TOL_SERIAL = 1e-3  # K3's single-file path against K4 at batch width, float32
+EXP_CUTS = {
+    "audio": "no audio in the repo: each file is a seeded numpy draw from its trained exp "
+             "model's prior at the file's own 16 kHz length "
+             "(results/missing_data_music_batched.json), peak 0.9, 16-bit wav",
+    "serial": "run_file and a second batched grid at the 20-sweep arm only, n_samples=0 in "
+              "both: the Monte-Carlo read-outs differ by their draws",
+    "giekf": f"T 53 248 -> {T_CUT} (three files cut), itts (1, 20) -> {GIEKF_ITTS}: GIEKF is "
+             "a Python loop over T of dense (57 x 57) steps, 0.7-1.7 ms a step on the card; "
+             "at T=2048 (c) and (d) took 96 s of a 159 s phase on a slow host",
+    "ihgp": f"the same three files at T={T_CUT}, itts (1, 20) -> {IHGP_ITTS}: IHGP's sweep 1 "
+            "is a Python loop over T, 1.2-2.0 ms a step on the card (PERF.md)",
+    "synthetic": f"T 4000 -> {T_SYN}, ep_itts 4 -> {SYN_ITTS}: the engines' Python loops",
+    "train_hyperopt": f"T 4096 -> {T_HO} (speech0_female's first reference gap at 1500 "
+                      "fits): a value and gradient of the ADF energy costs about 7 ms a "
+                      f"step on the card (PERF.md); {HO_STEPS} steps, the 20-sweep "
+                      "evaluation kept",
+}
 
 # Kernel vs plain, relative to the reference output's max |value|.
 # float64: the two differ only in summation order and FMA contraction
@@ -1400,6 +1445,230 @@ def denoise_phase(smi, dev):
     return out
 
 
+def write_prior_wavs(root, corpus, lengths, model_fmt, seed0):
+    """One 16 kHz wav a (name, T): a seeded numpy draw from the named model's
+    prior (``prior_signal``), scaled to peak 0.9."""
+    import torch
+
+    from nsgp_tpu_torch.convert import load_trained
+    from nsgp_tpu_torch.utils.audio import write_wav
+
+    os.makedirs(os.path.join(root, corpus), exist_ok=True)
+    for b, (name, T) in enumerate(lengths):
+        model, params = load_trained(os.path.join(ROOT, model_fmt.format(name)), device="cpu",
+                                     dtype=torch.float64)
+        y = prior_signal(np.random.default_rng(seed0 + b), model, params, T)
+        write_wav(os.path.join(root, corpus, f"{name}.wav"), 0.9 * y / np.abs(y).max(), 16000)
+
+
+def experiments_phase(smi, dev, batch_s_3sweeps):
+    """Phase 10: the experiment drivers on the card ``dev``.  (a) the
+    missing-data corpus grid (``run_batched``) at full width, launch counts;
+    (b) ``run_file`` on one file, K3's path, against the grid's row; (c)
+    batched GIEKF through the driver and alone at a cut T, against
+    single-file GIEKF (float32) and card against CPU (float64); (d) the
+    driver's IHGP arm at the cut T; (e) ``synthetic.run`` and
+    ``train_hyperopt.run_file``.  Returns the numbers of the ``experiments``
+    line."""
+    import shutil
+
+    import torch
+
+    from nsgp_tpu_torch import experiments as exps
+    from nsgp_tpu_torch.experiments import (missing_data, synthetic, train_corpus,
+                                            train_hyperopt, with_lik)
+    from nsgp_tpu_torch.inference.batched import giekf_infer_batch
+    from nsgp_tpu_torch.inference.giekf import GIEKFConfig, giekf_infer
+    from nsgp_tpu_torch.models.gtnmf import stack_params
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    t_phase = time.perf_counter()
+    out = {"device": smi, "cuts": EXP_CUTS, "s": {}}
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    audio = os.path.join(ROOT, EXP_AUDIO)
+    shutil.rmtree(audio, ignore_errors=True)
+    cwd, audio_root = os.getcwd(), exps.AUDIO_ROOT
+    os.chdir(ROOT)  # the drivers read results/trained/ from the checkout's root
+    try:
+        with open(os.path.join(ROOT, CORPUS)) as f:
+            lengths = [(r["file"], r["T"]) for r in json.load(f)["files"]
+                       if r["kernel1"] == "exp"]
+        exps.AUDIO_ROOT = os.path.join(audio, "full")
+        write_prior_wavs(exps.AUDIO_ROOT, "music", lengths, EXP_MODELS, 1000)
+        out["s"]["wavs"] = time.perf_counter() - t_phase
+
+        # ---- 10a: the corpus grid at full width ------------------------------------
+        t0 = time.perf_counter()
+        fk.reset_launches()
+        grid = missing_data.run_batched(corpus="music", kernels=("exp",), engines=("ep",),
+                                        ep_itts=GRID_ITTS, n_samples=GRID_MC, device=dev)
+        launches = counts()
+        out["s"]["a"] = time.perf_counter() - t0
+        want = {"fused_fwd": 2 * sum(i - 1 for i in GRID_ITTS), "fused_bwd": 2 * sum(GRID_ITTS),
+                "fused_adf": 0, "fused_adf_mb": 2 * len(GRID_ITTS)}
+        files = grid["files"]
+        pad_T = files[0]["pad_T"]
+        rows = [(f["file"], r) for f in files for r in f["rows"]]
+        bad = [(n, r) for n, r in rows if "error" in r or not (
+            math.isfinite(r["snr_gaps_db"]) and math.isfinite(r["rmse_gaps"]))]
+        arms = {str(r["ep_itts"]): dict(batch_size=r["batch_size"], seconds_cold=r["seconds_cold"],
+                                        batch_seconds_warm=r["batch_seconds_warm"])
+                for r in files[0]["rows"]}
+        log(f"phase10a run_batched music exp ep itts={GRID_ITTS} n_samples={GRID_MC} BF="
+            f"{len(files)} pad_T={pad_T} f32 on {smi}: {out['s']['a']:.1f} s; per arm {arms}; "
+            f"phase 5's 3-sweep batch call {batch_s_3sweeps:.3f} s; launches={launches} "
+            f"(want {want}); aggregate {grid['aggregate']}")
+        require(len(files) == len(lengths) and pad_T == -(-max(T for _, T in lengths) // 2048)
+                * 2048 and [f["T"] for f in files] == [T for _, T in lengths],
+                "phase10a: unexpected corpus shape")
+        require(not bad, f"phase10a: non-finite or failed rows {bad}")
+        require(launches == want, f"launch counts {launches} != {want}: the corpus grid missed "
+                f"a kernel")
+        out["grid"] = dict(files=len(files), pad_T=pad_T, itts=GRID_ITTS, n_samples=GRID_MC,
+                           launches=launches, arms=arms, phase5_batch_s_3sweeps=batch_s_3sweeps,
+                           aggregate=grid["aggregate"], grid_wall_s=grid["grid_wall_seconds"])
+
+        # ---- 10b: the serial driver on one file (K3) against the grid --------------
+        t0 = time.perf_counter()
+        name = files[0]["file"]
+        fk.reset_launches()
+        ser = missing_data.run_file("music", name, engines=("ep",), ep_itts=(SERIAL_ITTS,),
+                                    pad_T=pad_T, n_samples=0, device=dev)
+        serial_launches = counts()
+        twin = missing_data.run_batched(corpus="music", kernels=("exp",), engines=("ep",),
+                                        ep_itts=(SERIAL_ITTS,), n_samples=0, device=dev)
+        out["s"]["b"] = time.perf_counter() - t0
+        r_s = ser["rows"][0]
+        r_b = next(f for f in twin["files"] if f["file"] == name)["rows"][0]
+        rel = max(abs(r_s[k] - r_b[k]) / max(abs(r_b[k]), 1.0) for k in ("rmse_gaps",
+                                                                       "snr_gaps_db"))
+        log(f"phase10b run_file {name} ep itts={SERIAL_ITTS} n_samples=0 (K3): rmse "
+            f"{r_s['rmse_gaps']:.6g} snr {r_s['snr_gaps_db']:.6g} dB against the batched grid's "
+            f"{r_b['rmse_gaps']:.6g} / {r_b['snr_gaps_db']:.6g}: rel {rel:.3e} (tol "
+            f"{TOL_SERIAL:g}); warm {r_s['seconds_warm']} s, cold {r_s['seconds_cold']} s; "
+            f"launches {serial_launches}")
+        require(rel <= TOL_SERIAL, "phase10b: the serial row disagrees with the batched grid")
+        require(serial_launches["fused_adf"] == 2 and serial_launches["fused_adf_mb"] == 0,
+                f"phase10b: launch counts {serial_launches}: the serial path missed K3")
+        out["serial"] = dict(file=name, itts=SERIAL_ITTS, rel=rel, row=r_s, grid_row=r_b,
+                             launches=serial_launches)
+
+        # ---- 10c: batched GIEKF at the cut T ----------------------------------------
+        t0 = time.perf_counter()
+        exps.AUDIO_ROOT = os.path.join(audio, "cut")
+        write_prior_wavs(exps.AUDIO_ROOT, "music", [(n, T_CUT) for n in CUT_FILES],
+                         EXP_MODELS, 2000)
+        gk = missing_data.run_batched(corpus="music", files=CUT_FILES, kernels=("exp",),
+                                      engines=("giekf",), ep_itts=GIEKF_ITTS,
+                                      n_samples=GRID_MC, device=dev)
+        g_rows = [r for f in gk["files"] for r in f["rows"]]
+        require(all(math.isfinite(r["snr_gaps_db"]) and math.isfinite(r["rmse_gaps"])
+                    for r in g_rows), f"phase10c: non-finite GIEKF rows {g_rows}")
+
+        def cut_inputs(dtype):
+            tms, ys, ms = [], [], []
+            for n in CUT_FILES:
+                tm, y_norm = train_corpus.load_corpus_model("music", n, "exp", device=dev,
+                                                            dtype=dtype)
+                y, m, _ = missing_data._padded(n, y_norm, T_CUT)
+                tms.append(tm)
+                ys.append(y)
+                ms.append(m)
+            pB = stack_params([with_lik(tm.params, 1e-4) for tm in tms])
+            return (tms[0].model, pB, torch.tensor(np.stack(ys), dtype=dtype, device=dev),
+                    torch.tensor(np.stack(ms), device=dev))
+
+        gcfg = GIEKFConfig(**missing_data.engine_config("giekf", GIEKF_ITTS[-1]))
+        model, pB, yB, mB = cut_inputs(torch.float32)
+        rb, b_s = host_s(lambda: giekf_infer_batch(model, pB, yB, mB, gcfg))
+        r1, one_s = host_s(lambda: giekf_infer(model, pB.select(2), yB[2], mB[2], gcfg))
+        g_rel = max(rel_err(a, b) for a, b in ((rb.Eft[2], r1.Eft), (rb.Varft[2], r1.Varft),
+                                               (rb.nll[2], r1.nll)))
+        steps = T_CUT * gcfg.g_iter
+        m64 = cut_inputs(torch.float64)
+        r64, c64_s = host_s(lambda: giekf_infer_batch(*m64, gcfg))
+        h64, h64_s = host_s(lambda: giekf_infer_batch(*m64, gcfg, device="cpu"))
+        g64 = max(rel_err(a.cpu(), b) for a, b in ((r64.Eft, h64.Eft), (r64.Varft, h64.Varft),
+                                                   (r64.nll, h64.nll)))
+        out["s"]["c"] = time.perf_counter() - t0
+        arms_g = {str(r["ep_itts"]): dict(seconds_cold=r["seconds_cold"],
+                                          batch_seconds_warm=r["batch_seconds_warm"])
+                  for r in gk["files"][0]["rows"]}
+        log(f"phase10c run_batched giekf files={CUT_FILES} T={T_CUT} itts={GIEKF_ITTS} f32: "
+            f"{arms_g}; aggregate {gk['aggregate']}")
+        log(f"phase10c giekf_infer_batch BF=3 m={rb.ms.shape[-1]} g_iter={gcfg.g_iter} "
+            f"l_iter={gcfg.l_iter} T={T_CUT} f32: {b_s:.2f} s = {1e3 * b_s / steps:.3f} ms a "
+            f"step for the batch, one file alone (giekf_infer) {one_s:.2f} s = "
+            f"{1e3 * one_s / steps:.3f} ms a step; last file batch vs single rel {g_rel:.3e} "
+            f"(tol {TOL_F32:g}); f64 card vs cpu rel {g64:.3e} (tol {TOL_REAL:g}), card "
+            f"{c64_s:.2f} s, cpu {h64_s:.2f} s")
+        require(g_rel <= TOL_F32, "phase10c: batched GIEKF disagrees with giekf_infer")
+        require(g64 <= TOL_REAL, "phase10c: batched GIEKF on the card disagrees with the CPU")
+        require(rb.ms.shape == (3, T_CUT, 57), f"phase10c: state shape {tuple(rb.ms.shape)}")
+        out["giekf"] = dict(files=CUT_FILES, T=T_CUT, arms=arms_g, aggregate=gk["aggregate"],
+                            batch_s=b_s, batch_ms_step=1e3 * b_s / steps, single_s=one_s,
+                            single_ms_step=1e3 * one_s / steps, f32_rel=g_rel, f64_rel=g64,
+                            f64_card_s=c64_s, f64_cpu_s=h64_s)
+        del rb, r1, r64, h64, m64
+
+        # ---- 10d: the driver's IHGP arm at the cut T ----------------------------------
+        t0 = time.perf_counter()
+        fk.reset_launches()
+        ih = missing_data.run_batched(corpus="music", files=CUT_FILES, kernels=("exp",),
+                                      engines=("ihgp",), ep_itts=IHGP_ITTS, n_samples=GRID_MC,
+                                      device=dev)
+        ih_launches = counts()
+        out["s"]["d"] = time.perf_counter() - t0
+        ih_rows = [r for f in ih["files"] for r in f["rows"]]
+        arms_i = {str(r["ep_itts"]): dict(seconds_cold=r["seconds_cold"],
+                                          batch_seconds_warm=r["batch_seconds_warm"])
+                  for r in ih["files"][0]["rows"]}
+        log(f"phase10d run_batched ihgp files={CUT_FILES} T={T_CUT} itts={IHGP_ITTS} f32 "
+            f"(parallel, chunk 2048, grid_lo -7, keep_best): {arms_i}; aggregate "
+            f"{ih['aggregate']}; launches of K1-K4 {ih_launches}")
+        require(all(math.isfinite(r["snr_gaps_db"]) and math.isfinite(r["rmse_gaps"])
+                    for r in ih_rows), f"phase10d: non-finite IHGP rows {ih_rows}")
+        require(not any(ih_launches.values()), "phase10d: the IHGP arm launched an EP kernel")
+        out["ihgp"] = dict(files=CUT_FILES, T=T_CUT, arms=arms_i, aggregate=ih["aggregate"])
+
+        # ---- 10e: two more drivers at toy sizes ---------------------------------------
+        t0 = time.perf_counter()
+        syn = synthetic.run(T=T_SYN, seed=0, ep_itts=SYN_ITTS, device=dev)
+        syn_s = time.perf_counter() - t0
+        exps.AUDIO_ROOT = os.path.join(audio, "speech")
+        y_sp = speech_signal(T_HO, 800)
+        os.makedirs(os.path.join(exps.AUDIO_ROOT, "speech"))
+        from nsgp_tpu_torch.utils.audio import write_wav
+
+        write_wav(os.path.join(exps.AUDIO_ROOT, "speech", "speech0_female.wav"),
+                  0.9 * y_sp / np.abs(y_sp).max(), 16000)
+        ho = train_hyperopt.run_file("speech", "speech0_female", steps=HO_STEPS, device=dev)
+        out["s"]["e"] = time.perf_counter() - t0
+        log(f"phase10e synthetic.run T={T_SYN} ep_itts={SYN_ITTS} f32: " + ", ".join(
+            f"{e} rmse_sig {syn[e]['rmse_sig']:.4g} ({syn[e]['seconds']} s)"
+            for e in ("ep", "ihgp", "giekf")) + f" (y_std {syn['config']['y_std']:.4g}); "
+            f"{syn_s:.1f} s")
+        log(f"phase10e train_hyperopt.run_file speech0_female T={T_HO} {HO_STEPS} steps f32: "
+            f"energies {ho['energy_trace']} in {ho['opt_seconds']} s; gap SNR init "
+            f"{ho['snr_gaps_init_db']:.3f} dB, learned {ho['snr_gaps_learned_db']:.3f} dB")
+        require(all(math.isfinite(syn[e]["rmse_sig"]) for e in ("ep", "ihgp", "giekf")),
+                "phase10e: non-finite synthetic rows")
+        require(all(math.isfinite(v) for v in ho["energy_trace"] + [
+            ho["snr_gaps_init_db"], ho["snr_gaps_learned_db"]]), "phase10e: non-finite hyperopt")
+        out["synthetic"] = {e: syn[e] for e in ("ep", "ihgp", "giekf")}
+        out["train_hyperopt"] = {k: ho[k] for k in ("T", "steps", "opt_seconds", "energy_trace",
+                                                    "snr_gaps_init_db", "snr_gaps_learned_db",
+                                                    "learned")}
+    finally:
+        os.chdir(cwd)
+        exps.AUDIO_ROOT = audio_root
+        shutil.rmtree(audio, ignore_errors=True)
+    out["s"]["total"] = time.perf_counter() - t_phase
+    log(f"phase10 done in {out['s']['total']:.0f} s ({', '.join(f'{k} {v:.0f}' for k, v in out['s'].items() if k != 'total')})")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nsgp_tpu_torch")):
         raise RuntimeError("chip_smoke.py must run from a checkout of the repository")
@@ -1690,12 +1959,17 @@ def main() -> int:
 
     # ---- phase 9: the denoising path ------------------------------------------------
     denoise_numbers = denoise_phase(smi, dev)
+
+    # ---- phase 10: the experiment drivers -------------------------------------------
+    exp_numbers = experiments_phase(smi, dev, batch_s)
+    launches_exp = exp_numbers["launches"]
     log(f"all phases done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- the kernels line --------------------------------------------------------
     # One entry per kernel at its main path's shape: K1-K3 the single-signal
     # path (phase 2), K4 the batched path (phase 5).  `launches` is that run's
-    # count; `launches_by_path` has all three paths.  `plain_ms` is the plain
+    # count; `launches_by_path` has all four paths (phase 10's corpus grid as
+    # "experiments").  `plain_ms` is the plain
     # version over `plain_steps` steps (it is a Python loop over T: for K1
     # the first, for K2 the last `plain_steps` rows of the kernel's run over
     # all T, so `max_abs_err` is of the launch that `chunk` and `chunks`
@@ -1715,7 +1989,8 @@ def main() -> int:
                  **numbers(nums, shape, **more),
                  launches_by_path={"single": launches_single[name],
                                    "batch": launches_batch[name],
-                                   "mixture": launches_mix[name]})
+                                   "mixture": launches_mix[name],
+                                   "experiments": launches_exp[name]})
         if other:
             e["other_shapes"] = other
         return e
@@ -1739,6 +2014,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
     print(json.dumps({"denoise": denoise_numbers}), flush=True)
+    print(json.dumps({"experiments": exp_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,8 @@ same path:
 - ``inference`` : Power-EP (``ep_infer``), sequential and fused backends;
                   steady-state IHGP (``ihgp_infer``, ``ihgp_energy``); batched
                   EP and IHGP over files (``ep_infer_batch``,
-                  ``ihgp_infer_batch``); GIEKF; learning and HMC/VI; the
-                  engine registry.
+                  ``ihgp_infer_batch``), GIEKF (one file and batched);
+                  learning and HMC/VI; the engine registry.
 - ``pretrain``  : a trained model from a raw signal
                   (``pipeline.train_gtnmf_fixed_params``): the Whittle fit of
                   the spectral-mixture filterbank, the steady Kalman
@@ -26,6 +26,9 @@ same path:
 - ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR /
                   log-spectral SNR, fwSegSNR and STOI, WAV IO.
 - ``convert``   : parameters from numpy / trained ``.npz`` artifacts.
+- ``experiments``: the paper's experiment drivers and their CLIs
+                  (``python -m nsgp_tpu_torch.experiments.<name>``), imported
+                  on their own, not by this package.
 
 It imports torch and numpy only, never jax.  Kernels are compiled with
 ``nvcc`` at first use on a CUDA tensor, never at import.  Entry points place

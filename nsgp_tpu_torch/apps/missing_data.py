@@ -63,8 +63,9 @@ def fill_gaps_batch(
 ) -> GapFillResult:
     """Batched ``fill_gaps``: BF files through one batched inference
     (``inference.batched``).  Returns per-file metric tensors (BF,).  The
-    result holds moments, sites and energies only: ``BatchEPResult`` carries
-    no dense state trajectories."""
+    result holds moments, sites and energies only: a GIEKF result's dense
+    state trajectories ``ms`` / ``Ps`` are dropped (None), as in the JAX
+    package (about 0.7 GB a file in float32 at music length)."""
     from nsgp_tpu_torch.inference import batched as bt
 
     dev = resolve_device(device)
@@ -80,6 +81,8 @@ def fill_gaps_batch(
                            n_samples)
         for b in range(BF)])
     gapB = ~maskB if metric_gapsB is None else metric_gapsB.to(dev)
+    if hasattr(res, "ms") and hasattr(res, "Ps"):
+        res = res._replace(ms=None, Ps=None)
     return GapFillResult(y_hat=y_hatB, rmse_gaps=metrics.rmse(y_trueB, y_hatB, gapB),
                          snr_gaps=metrics.snr_db(y_trueB, y_hatB, gapB), result=res)
 

@@ -210,14 +210,15 @@ def test_infer_batch_dispatch(files, fused_batch):
     args = (model, pB, torch.tensor(yB), torch.tensor(maskB))
     r = tbt.infer_batch("ep", *args, device="cpu", ep_itts=3, backend="fused")
     np.testing.assert_array_equal(_np(r.Eft), _np(res.Eft))
-    # every "ihgp*" name is the batched IHGP engine; batched GIEKF is not ported
+    # every "ihgp*" name is the batched IHGP engine; "giekf" the batched GIEKF
     ri = tbt.ihgp_infer_batch(*args, tih.IHGPConfig(ep_itts=2), device="cpu")
     assert ri.Eft.shape == (BF, T, D + N) and ri.nlZ.shape == (BF, 2)
     for engine in ("ihgp", "ihgp_tuned"):
         r = tbt.infer_batch(engine, *args, device="cpu", ep_itts=2)
         assert torch.equal(r.Eft, ri.Eft) and torch.equal(r.nlZ, ri.nlZ), engine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbt.infer_batch("giekf", *args, device="cpu")
+    rg = tbt.infer_batch("giekf", *args, device="cpu", g_iter=1, l_iter=1)
+    assert rg.Eft.shape == (BF, T, D + N) and rg.nll.shape == (BF,)
+    assert bool(torch.isfinite(rg.Eft).all())
     with pytest.raises(ValueError, match="unknown engine"):
         tbt.infer_batch("ekf", *args, device="cpu")
 

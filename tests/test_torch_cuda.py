@@ -571,6 +571,43 @@ def test_giekf_energy_gradient_card_matches_cpu(cuda):
                 [cpu.Eft, cpu.Varft, cpu.nll]) <= TRAIN_TOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_giekf_batch_card_matches_single_file(cuda, dtype):
+    """``giekf_infer_batch`` over three files (hyperparameters, gaps and a
+    padded tail that differ per file) against single-file ``giekf_infer``
+    on the card, file by file; at float64 also the batch on the card
+    against the batch on the CPU."""
+    from nsgp_tpu_torch.inference.batched import giekf_infer_batch
+    from nsgp_tpu_torch.inference.giekf import GIEKFConfig, giekf_infer
+
+    cases = [_train_case(dtype, variant="amp") for _ in range(3)]
+    model = cases[0][0]
+    plist, ys = [], []
+    for b, (_, p, y) in enumerate(cases):
+        p = GTNMFParams(*(x * (1.0 + 0.05 * b) if k != "W" else x
+                          for k, x in zip(("lik", "sub_var", "sub_len", "omega", "mod_var",
+                                           "mod_len", "W"), p.leaves())))
+        plist.append(p)
+        ys.append(y * (1.0 + 0.1 * b))
+    paramsB, yB = stack_params(plist), torch.stack(ys)
+    maskB = torch.ones_like(yB, dtype=torch.bool)
+    for b in range(3):
+        maskB[b, 8 + 10 * b: 14 + 10 * b] = False
+        maskB[b, yB.shape[1] - 4 * b:] = False
+    cfg = GIEKFConfig(g_iter=3, l_iter=2)
+    card = giekf_infer_batch(model, paramsB, yB, maskB, cfg)
+    assert card.Eft.device.type == "cuda" and card.Ps.shape[:2] == yB.shape
+    for b in range(3):
+        one = giekf_infer(model, plist[b], yB[b], maskB[b], cfg)
+        assert _rel([card.Eft[b], card.Varft[b], card.nll[b]],
+                    [one.Eft, one.Varft, one.nll]) <= TOL[dtype]
+    if dtype == torch.float64:
+        cpu = giekf_infer_batch(model, paramsB, yB, maskB, cfg, device="cpu")
+        assert _rel([card.Eft.cpu(), card.Varft.cpu(), card.nll.cpu()],
+                    [cpu.Eft, cpu.Varft, cpu.nll]) <= TRAIN_TOL
+
+
 # ---------------------------------------------------------------------------
 # The IHGP engine on the card (plain torch, no kernel of its own): the DARE
 # bank, the three forms of the steady passes and the energy's gradient, held

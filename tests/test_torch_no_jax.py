@@ -1,6 +1,6 @@
 """The port stands alone: importing and running ``nsgp_tpu_torch`` (inference,
-the pretraining pipeline and denoising among it) loads no jax and no
-``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
+the pretraining pipeline, denoising and the experiment drivers among it, one
+driver run at a toy size) loads no jax and no ``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
 outside a checkout, and imports neither package."""
 
 import ast
@@ -101,6 +101,15 @@ tm = pipeline.train_gtnmf_fixed_params(
 dn = denoise.denoise(tm.model, tm.params, ys[:64], 0.1, y_clean=ys[:64], n_samples=2,
                      device="cpu", ep_itts=2, backend="fused")
 assert torch.isfinite(dn.snr_out) and torch.isfinite(speech_quality.fw_seg_snr(ys, ys * 0.9, 8000))
+from nsgp_tpu_torch import experiments
+from nsgp_tpu_torch.experiments import (denoising, filterbank_demo, hmc_hypers, hmc_sbc,
+                                        nonstationary_demo, protocol, synthetic, textures_ihgp,
+                                        toy_demo, train_corpus, train_hyperopt)
+from nsgp_tpu_torch.experiments import missing_data as md_driver
+from nsgp_tpu_torch.experiments import source_sep as ss_driver
+res = synthetic.run(T=24, ep_itts=1, device="cpu", engine_kwargs={"giekf": {"g_iter": 1}})
+assert all(np.isfinite(res[e]["rmse_sig"]) for e in ("ep", "ihgp", "giekf"))
+assert md_driver.engine_config("ep", 20, device="cpu")["ep_itts"] == 20
 try:
     device.resolve_device(None)
     assert torch.cuda.is_available()
