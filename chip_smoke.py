@@ -52,7 +52,7 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    the same call at T=2048 in float64 on the card against the CPU.
 
 7. the training path (``training_phase``): gradients and a fit card vs CPU at
-   float64, one value and gradient at T=16 000 float32, a 3-step fit then a
+   float64, one value and gradient at T=8000 float32, a 3-step fit then a
    gap fill on the fused path, HMC/VI, GIEKF; its line ``{"training": ...}``.
 8. the IHGP path (``ihgp_phase``, plain torch: no kernel of its own, as JAX's
    IHGP reaches no Pallas kernel) at the headline model: (a) the DARE bank
@@ -172,12 +172,14 @@ TRAIN_SPECS = {"lik": "fixed", "sub_var": "fixed", "sub_len": (100.0, 2000.0), "
 LIK_TRAIN, LIK_MISSING = 1e-3, 1e-4
 SPEECH_GAPS = (1500, 5000, 7000, 9000, 13000, 18000)
 EVAL_ITTS = 20
-# T of each step: 7a's gradients at 1024 and 7b at the script's training length
-# (16 000); the rest cut for time (a value and gradient costs 6-8 ms a step on
-# the card, PERF.md): 7a's fit at 256, 7c's fit 16 000 -> 1024 (the gap fill
+# T of each step: 7a's gradients at 1024 and 7b at half the script's training
+# length (16 000 -> 8000, to keep the whole script under 1100 s of its limit
+# with phase 11: 7b's us a step do not depend on T); the rest cut for time (a
+# value and gradient costs 6-8 ms a step on the card, PERF.md): 7a's fit at
+# 256, 7c's fit 16 000 -> 1024 (the gap fill
 # keeps the whole 20 000-sample signal, long enough for all six gaps), 7d
 # 2000 -> 32, 7e 256 for the card-vs-CPU check and 1024 for the float32 timing.
-T_GRAD, T_FIT_PARITY, T_TRAIN, T_FIT, T_GAPS = 1024, 256, 16_000, 1024, 20_000
+T_GRAD, T_FIT_PARITY, T_TRAIN, T_FIT, T_GAPS = 1024, 256, 8000, 1024, 20_000
 T_HMC, T_GIEKF, T_GIEKF_LONG = 32, 256, 1024
 # experiments/hmc_hypers.py:45-71: the toy and its boxes
 HMC_SPECS = {"lik": (1e-4, 0.1), "sub_var": "fixed", "sub_len": "fixed", "omega": "fixed",
@@ -843,6 +845,7 @@ def training_phase(smi, dev):
         f"{e_fwd.item():.8g}")
     require(math.isfinite(e_gap) and e_gap < 1e-3, "float32 energy drifted from float64")
     require(bool(torch.isfinite(g32).all()), "non-finite float32 gradient")
+    # The key keeps the name it had at T=16000; "T" inside is the length run.
     out["t16000"] = dict(T=T_TRAIN, forward_s=fwd_s, value_grad_s=vg_s,
                          forward_us_per_step=1e6 * fwd_s / T_TRAIN,
                          value_grad_us_per_step=1e6 * vg_s / T_TRAIN,
@@ -1669,6 +1672,286 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
     return out
 
 
+# Phase 11: the device mesh (nsgp_tpu_torch/parallel/mesh.py).  The ranks
+# share the one card, so they join over gloo: NCCL refuses two ranks on one
+# GPU ("Duplicate GPU detected", checked on an H100).
+MESH_BACKEND = "gloo"
+MESH_RANKS = 4
+T_MESH64 = 4096  # 11a in float64
+T_MESH_TIME, MESH_CHUNK = 2048, 256  # 11b, 11c: the seq engine's sweep 1 is a Python loop
+MESH_TRAIN = dict(B=4, T=512, ep_itts=1)  # 11d
+SD_ARGS = ["--T", "1024", "--chunk", "128", "--reps", "0", "--world", "2"]  # 11e
+TOL_MESH64 = 1e-9
+MESH_CUTS = {
+    "b_T": f"{T_MESH_TIME} of 8192 and chunk {MESH_CHUNK}: sweep 1 is the sequential ADF loop "
+           f"on every rank, about 2 ms a step on the card",
+    "c_T": f"{T_MESH_TIME} of 4096, the same signal and config as (b), so one unsharded "
+           f"reference serves both",
+    "d": "ep_itts=1 (the ADF energy that learn.fit_hyperparams climbs by default): autograd "
+         "through the sequential loop at about 7 ms a step",
+    "e": "scaling_dryrun at --T 1024 --chunk 128 --reps 0 --world 2 (the CLI's T=196 608 "
+         "takes minutes an arm: sweep 1 is the sequential loop on every rank)",
+    "f": "wavs are seeded draws from the trained models' priors (no audio in the repo): "
+         "speech_fit_probe on speech1_male at T=8000; gap_fill_data at T=1700 around the first "
+         "reference gap (IHGP's sweep 1 is a Python loop); spectrogram_data at T=4096; "
+         "source_sep_data on seeded test wavs; the renderers are not run (no matplotlib on "
+         "the card's machine; the CPU tests draw them)",
+    "phase7b": "one value and gradient at T=8000 of the training length 16 000, to keep the "
+               "whole script under 1100 s of its 1200 with this phase (us a step unchanged)",
+}
+T_PROBE, T_GAP_FIG, T_SPEC_FIG = 8000, 1700, 4096  # 11f
+
+
+def mesh_rank(rank):
+    """One rank of phase 11's world (every rank runs every case; a case's
+    mesh takes the leading ranks).  (a) ``shard_inference_over_channels`` on
+    the fused path at the headline shape, float32, and at T_MESH64 in float64,
+    each against the unsharded call timed on rank 0 alone; (b) time-sharded
+    blocked EP at 4 ranks, (c) the 2-D mesh, both against one rank; (d) a
+    data-parallel training step at 2 ranks against 1.  Returns launch counts
+    of (a)'s sharded run, and on rank 0 the numbers of the ``mesh`` line."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+    from nsgp_tpu_torch.parallel import collectives
+    from nsgp_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda")
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    out = {"rank": rank, "backend": dist.get_backend()}
+    fields = ("Eft", "Varft", "nlZ", "ms", "Ps", "lZ")
+
+    # (a) channel-sharded fused EP, float32 at the headline shape, then float64
+    cfg = EPConfig(ep_itts=EP_ITTS, backend="fused", moment_chunk=8192)
+    for dtype, T, label in ((torch.float32, T_MAIN, "a_f32"), (torch.float64, T_MESH64, "a_f64")):
+        model, params, y = bench_inputs(dtype, dev)
+        y = y[:T]
+        ref, one = None, []
+        if rank == 0:
+            ref = ep_infer(model, params, y, None, cfg)  # warm-up, then the timed runs
+            one = [host_s(lambda: ep_infer(model, params, y, None, cfg))[1] for _ in range(2)]
+        dist.barrier()
+        mesh = pmesh.make_mesh({"channel": 2})
+        if mesh is not None:
+            fk.reset_launches()
+            collectives.reset_collectives()
+            res, first = host_s(lambda: pmesh.shard_inference_over_channels(
+                model, params, y, mesh, cfg))
+            launches, coll = counts(), collectives.collective_stats()
+            two = [host_s(lambda: pmesh.shard_inference_over_channels(
+                model, params, y, mesh, cfg))[1] for _ in range(2)]
+            out[label] = dict(launches=launches, checksum=res.Eft.double().sum().item())
+            if rank == 0:
+                check_posterior(f"phase11 {label}", res.nlZ, res.Eft, res.Varft, (T, D + N))
+                _, rel = max_err([getattr(res, f) for f in fields], [getattr(ref, f) for f in fields])
+                out[label].update(
+                    T=T, channels=[c.numel() for c in torch.arange(D + N).tensor_split(2)],
+                    rel=rel,
+                    s_per_sweep_1rank=float(np.mean(one)) / EP_ITTS,
+                    s_per_sweep_2ranks=float(np.mean(two)) / EP_ITTS, first_call_s=first,
+                    collectives=coll,
+                    collective_bytes_per_sweep=sum(v["bytes"] for v in coll.values()) / EP_ITTS)
+        dist.barrier()
+        del ref
+
+    # (b) time-sharded blocked EP on the seq engine, (c) the 2-D mesh: float64
+    model, params, y = bench_inputs(torch.float64, dev)
+    y = y[:T_MESH_TIME]
+    cfg_t = EPConfig(ep_itts=EP_ITTS, parallel=True, chunk=MESH_CHUNK)
+    ref = None
+    if rank == 0:
+        ref, out["bc_1rank_s"] = host_s(lambda: ep_infer(model, params, y, None, cfg_t))
+    dist.barrier()
+    fk.reset_launches()
+    mesh = pmesh.make_mesh({"time": MESH_RANKS})
+    collectives.reset_collectives()
+    res, t_b = host_s(lambda: pmesh.shard_inference_over_time(model, params, y, mesh, cfg_t,
+                                                              chunk=MESH_CHUNK))
+    coll_b = collectives.collective_stats()
+    mesh = pmesh.make_mesh({"time": 2, "channel": 2})
+    with pmesh.set_mesh(mesh):
+        res_c, t_c = host_s(lambda: ep_infer(model, params, y, None, cfg_t._replace(
+            time_axis="time", channel_axis="channel")))
+    out["bc_launches"] = counts()
+    if rank == 0:
+        for label, r, t, coll in (("b", res, t_b, coll_b), ("c", res_c, t_c, None)):
+            _, rel = max_err([getattr(r, f) for f in fields], [getattr(ref, f) for f in fields])
+            out[label] = dict(T=T_MESH_TIME, chunk=MESH_CHUNK, rel=rel, s=t, collectives=coll)
+    dist.barrier()
+
+    # (d) one data-parallel training step, float64
+    B, Tt = MESH_TRAIN["B"], MESH_TRAIN["T"]
+    ys = y[: B * Tt].reshape(B, Tt)
+    masks = torch.ones_like(ys, dtype=torch.bool)
+    cfg_d = EPConfig(ep_itts=MESH_TRAIN["ep_itts"])
+    sgd = functools.partial(torch.optim.SGD, lr=1e-2)
+    steps = {}
+    for n in (1, 2):
+        mesh = pmesh.make_mesh({"data": n})
+        if mesh is not None:
+            step = pmesh.make_train_step(model, cfg_d, mesh, sgd)
+            collectives.reset_collectives()
+            (p2, _, loss), t = host_s(lambda: step(params, pmesh.init_train_state(params, sgd),
+                                                   ys, masks))
+            steps[n] = (p2, loss, t, collectives.collective_stats())
+        dist.barrier()
+    if rank == 0:
+        (p1, l1, t1, _), (p2, l2, t2, coll_d) = steps[1], steps[2]
+        _, rel = max_err([l2] + list(p2.leaves()), [l1] + list(p1.leaves()))
+        out["d"] = dict(B=B, T=Tt, rel=rel, s_1rank=t1, s_2ranks=t2, loss=l2.item(),
+                        collectives=coll_d)
+    return out
+
+
+def mesh_phase(smi):
+    """Phase 11: the device mesh on the card, MESH_RANKS ranks over gloo
+    (``mesh_rank``), then the scaling_dryrun CLI in its own world.  Returns the
+    numbers of the ``mesh`` line and the per-rank launches of (a)."""
+    import torch
+
+    from nsgp_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    ranks = pmesh.spawn_world(mesh_rank, MESH_RANKS, MESH_BACKEND)
+    r0 = ranks[0]
+    t_abcd = time.perf_counter() - t_phase
+    for label, tol in (("a_f32", TOL_F32), ("a_f64", TOL_MESH64)):
+        a = r0[label]
+        log(f"phase11 {label} shard_inference_over_channels fused T={a['T']} C={D + N} on 2 ranks "
+            f"({MESH_BACKEND}): rel err vs unsharded {a['rel']:.3e} (tol {tol:g}); s/sweep 1 rank "
+            f"{a['s_per_sweep_1rank']:.4f}, 2 ranks {a['s_per_sweep_2ranks']:.4f} (first call "
+            f"{a['first_call_s']:.3f} s); collectives {a['collectives']}, "
+            f"{a['collective_bytes_per_sweep']:.0f} B a sweep; launches by rank "
+            f"{[r[label]['launches'] for r in ranks[:2]]} on {smi}")
+        require(a["rel"] <= tol, f"phase11 {label}: sharded EP disagrees with unsharded")
+        require(ranks[1][label]["checksum"] == a["checksum"], f"phase11 {label}: ranks differ")
+        want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0}
+        for r in ranks[:2]:
+            require(r[label]["launches"] == want, f"phase11 {label}: rank {r['rank']} launched "
+                                                  f"{r[label]['launches']}, not {want}")
+    for label in ("b", "c"):
+        log(f"phase11 {label} T={T_MESH_TIME} chunk={MESH_CHUNK} f64 "
+            f"{'time 4' if label == 'b' else 'time 2 x channel 2'}: rel err vs 1 rank "
+            f"{r0[label]['rel']:.3e} (tol {TOL_MESH64:g}); {r0[label]['s']:.2f} s against "
+            f"{r0['bc_1rank_s']:.2f} s on 1 rank; collectives {r0[label]['collectives']}")
+        require(r0[label]["rel"] <= TOL_MESH64, f"phase11 {label}: sharded EP disagrees")
+    require(all(v == 0 for r in ranks for v in r["bc_launches"].values()),
+            "phase11 b/c: the seq engine launched a fused kernel")
+    d = r0["d"]
+    log(f"phase11 d data-parallel step B={d['B']} T={d['T']} f64: 2 ranks vs 1 rel err "
+        f"{d['rel']:.3e} (tol {TOL_MESH64:g}); {d['s_2ranks']:.2f} s against {d['s_1rank']:.2f} s; "
+        f"loss {d['loss']:.6f}; collectives {d['collectives']}")
+    require(d["rel"] <= TOL_MESH64, "phase11 d: the data-parallel step disagrees with one rank")
+
+    # (e) the scaling_dryrun CLI, its own world of ranks on the card
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "nsgp_tpu_torch.experiments.scaling_dryrun", *SD_ARGS,
+                    "--device", "cuda", "--backend", MESH_BACKEND], cwd=ROOT, check=True,
+                   timeout=600)
+    t_e = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "results", "torch", "scaling_dryrun.json")) as f:
+        sd = json.load(f)
+    arms = [(a["arm"], a["devices"], a["cold_seconds"], a["max_abs_diff_vs_1dev"],
+             a["collectives"].get("chunk_totals")) for a in sd["arms"]]
+    log(f"phase11 e scaling_dryrun {' '.join(SD_ARGS)}: arms (arm, ranks, s, max|diff| vs 1 rank, "
+        f"chunk totals) {arms}; model {sd['pass2_exchange_model']['total_bytes_per_pass']} B a "
+        f"pass ({t_e:.0f} s)")
+    require(len(sd["arms"]) == 4 and all(a["finite"] and a["max_abs_diff_vs_1dev"] <= TOL_F32
+                                         for a in sd["arms"]), "phase11 e: scaling_dryrun arms")
+    t0 = time.perf_counter()
+    f = drivers_on_card()
+    t_f = time.perf_counter() - t0
+    out = dict(backend=MESH_BACKEND, ranks=MESH_RANKS, cuts=MESH_CUTS,
+               **{k: r0[k] for k in ("a_f32", "a_f64", "b", "c", "d", "bc_1rank_s")},
+               e=dict(args=SD_ARGS, arms=sd["arms"],
+                      pass2_exchange_model=sd["pass2_exchange_model"], s=t_e), f=f,
+               launches_by_rank=[r["a_f32"]["launches"] for r in ranks[:2]])
+    out["phase11_s"] = dict(total=time.perf_counter() - t_phase, abcd=t_abcd, e=t_e, f=t_f)
+    log(f"phase11 done in {out['phase11_s']['total']:.0f} s (a-d {t_abcd:.0f}, e {t_e:.0f}, "
+        f"f {t_f:.0f})")
+    return out
+
+
+def drivers_on_card():
+    """Phase 11f: ``speech_fit_probe.run`` and the ``figures`` data functions
+    on the card, on seeded prior-draw wavs (``MESH_CUTS["f"]``)."""
+    import shutil
+
+    import torch
+
+    from nsgp_tpu_torch import experiments as exps
+    from nsgp_tpu_torch.experiments import figures, speech_fit_probe
+    from nsgp_tpu_torch.experiments.source_sep import PARTS, TEST_IND
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+    from nsgp_tpu_torch.utils.audio import write_wav
+
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    audio = os.path.join(ROOT, EXP_AUDIO, "mesh")
+    shutil.rmtree(audio, ignore_errors=True)
+    cwd, audio_root = os.getcwd(), exps.AUDIO_ROOT
+    os.chdir(ROOT)  # the drivers read results/ from the checkout's root
+    out = {}
+    try:
+        exps.AUDIO_ROOT = audio
+        for name, kernel, T, seed in (("speech1_male", "matern32", T_PROBE, 1100),
+                                      ("speech2_male", "exp", T_SPEC_FIG, 1101)):
+            write_prior_wavs(audio, "speech", [(name, T)], os.path.join(
+                "results", "trained", "speech", f"trained_{{}}_{kernel}.npz"), seed)
+        write_prior_wavs(audio, "music", [("bamboo_flute", T_GAP_FIG)], EXP_MODELS, 1200)
+        test_dir = os.path.join(audio, "source_sep", "test_data")
+        os.makedirs(test_dir)
+        rng = np.random.default_rng(1300)
+        parts = {p: 0.3 * rng.normal(size=TEST_IND[1]) for p in PARTS}
+        for p, y in parts.items():
+            write_wav(os.path.join(test_dir, f"011PFNOM_{p}_part.wav"), y, 16000)
+        write_wav(os.path.join(test_dir, "011PFNOM_mixture.wav"), sum(parts.values()) / 3, 16000)
+
+        fk.reset_launches()
+        probe, t_probe = host_s(lambda: speech_fit_probe.run(["speech1_male"]))
+        row = probe["files"][0]
+        out["speech_fit_probe"] = dict(T=T_PROBE, row=row, s=t_probe, launches=counts())
+        log(f"phase11 f speech_fit_probe speech1_male T={T_PROBE} EP@20 fused: val "
+            f"{ {a: r.get('val_snr_db') for a, r in row['arms'].items()} } selected "
+            f"{row['selected']}, test {row['test_snr_db_base']} / {row['test_snr_db_selected']} dB "
+            f"(prior draws); {t_probe:.1f} s; launches {counts()}")
+        require(set(row["arms"]) == set(speech_fit_probe.ARMS)
+                and all(math.isfinite(r["val_snr_db"]) for r in row["arms"].values())
+                and counts()["fused_adf"] >= 5, "phase11 f: speech_fit_probe")
+        fk.reset_launches()
+        gap, t_gap = host_s(lambda: figures.gap_fill_data(gap_index=0))
+        gap_launches = counts()
+        spec, t_spec = host_s(lambda: figures.spectrogram_data(ep_itts=30))
+        sep, t_sep = host_s(figures.source_sep_data)
+        agg = figures.aggregates_data()
+        finite = lambda xs: all(np.all(np.isfinite(x)) for x in xs)
+        out["figures"] = dict(
+            gap_fill=dict(T=T_GAP_FIG, s=t_gap, launches=gap_launches,
+                          rmse_in_window={k: float(np.sqrt(np.mean((v - gap["clean"]) ** 2)))
+                                          for k, v in gap["recons"].items()}),
+            spectrograms=dict(T=T_SPEC_FIG, s=t_spec, snr_db={
+                t: float(10 * np.log10(np.sum(spec["panels"][0][1] ** 2)
+                                       / np.sum((x - spec["panels"][0][1]) ** 2)))
+                for t, x in spec["panels"][1:]}),
+            source_sep=dict(s=t_sep, parts=list(sep["parts"])),
+            aggregates=[c for c, _ in agg], rendered=False)
+        log(f"phase11 f figures data on the card: gap_fill {t_gap:.1f} s (launches "
+            f"{gap_launches}), spectrograms {t_spec:.1f} s "
+            f"{out['figures']['spectrograms']['snr_db']}, source_sep {t_sep:.1f} s, aggregates "
+            f"{out['figures']['aggregates']}; renderers not run (no matplotlib here)")
+        require(finite(gap["recons"].values()) and finite(x for _, x in spec["panels"])
+                and finite(x for pair in sep["parts"].values() for x in pair)
+                and gap_launches["fused_adf"] == 1 and len(agg) == 2, "phase11 f: figures data")
+    finally:
+        os.chdir(cwd)
+        exps.AUDIO_ROOT = audio_root
+        shutil.rmtree(audio, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nsgp_tpu_torch")):
         raise RuntimeError("chip_smoke.py must run from a checkout of the repository")
@@ -1963,6 +2246,9 @@ def main() -> int:
     # ---- phase 10: the experiment drivers -------------------------------------------
     exp_numbers = experiments_phase(smi, dev, batch_s)
     launches_exp = exp_numbers["launches"]
+
+    # ---- phase 11: the device mesh --------------------------------------------------
+    mesh_numbers = mesh_phase(smi)
     log(f"all phases done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- the kernels line --------------------------------------------------------
@@ -1990,7 +2276,8 @@ def main() -> int:
                  launches_by_path={"single": launches_single[name],
                                    "batch": launches_batch[name],
                                    "mixture": launches_mix[name],
-                                   "experiments": launches_exp[name]})
+                                   "experiments": launches_exp[name],
+                                   "mesh": [r[name] for r in mesh_numbers["launches_by_rank"]]})
         if other:
             e["other_shapes"] = other
         return e
@@ -2015,6 +2302,7 @@ def main() -> int:
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
     print(json.dumps({"denoise": denoise_numbers}), flush=True)
     print(json.dumps({"experiments": exp_numbers}), flush=True)
+    print(json.dumps({"mesh": mesh_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,9 @@ same path:
                   ``tv_wiener``).
 - ``utils``     : full-fp32 matmul guard, device rule, RMSE / SNR /
                   log-spectral SNR, fwSegSNR and STOI, WAV IO.
+- ``parallel``  : the device mesh over ``torch.distributed``: EP split by
+                  channel or by time over ranks, data-parallel training
+                  (imported on its own, not by this package).
 - ``convert``   : parameters from numpy / trained ``.npz`` artifacts.
 - ``experiments``: the paper's experiment drivers and their CLIs
                   (``python -m nsgp_tpu_torch.experiments.<name>``), imported

@@ -20,6 +20,11 @@ and a ``main()`` CLI with the same flags, run as
 - nonstationary_demo: the three engines on 1 s of speech
 - filterbank_demo   : the stationary probabilistic filterbank
 - hmc_hypers, hmc_sbc: HMC/VI over hyperparameters and its calibration
+- scaling_dryrun    : EP split by time and by channel over a world of ranks
+                      (``parallel.mesh``): parity, collectives and bytes
+- figures           : the paper figures' data (on the device) and PNGs
+- speech_fit_probe  : the weak speech files' fit variations, selected on
+                      validation gaps
 
 Devices: ``--device cuda`` (the default) or ``cpu``; the default raises
 without a card (``utils.device.resolve_device``).  The working type is

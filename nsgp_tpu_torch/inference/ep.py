@@ -31,6 +31,22 @@ Two backends:
 ``ep_energy`` is the energy mode: the sequential engine whatever the backend,
 differentiable by autograd with respect to every ``GTNMFParams`` leaf.
 
+Sharding over a mesh (``parallel.mesh``; the axis names resolve against the
+ambient mesh of ``parallel.mesh.set_mesh``).  Every rank returns the same
+result, in the unsharded layout (full T, full C):
+
+- ``channel_axis``: each rank runs the fixed-site smoother and forward passes
+  (K1/K2 on ``"fused"``) on its contiguous run of channels.  Sweep 1 (ADF),
+  the sequential engine's forward passes (they re-match the last site, which
+  couples the channels) and the re-site (its moments need every channel at a
+  step) stay replicated; the (T, C) observable marginals are gathered before
+  each re-site, the smoothed states once at return.
+- ``time_axis`` (``parallel=True``, ``chunk > 0``): each rank owns a run of
+  the blocked scan's chunks (``ops.bscan``); sweep 1 is replicated; the
+  sites stay split over T between sweeps (the re-site is independent per
+  step), ``nlZ`` and ``maxdiff`` are reduced over the axis and the result is
+  gathered once, at return.
+
 Placement follows ``utils.device``: ``ep_infer`` and ``ep_energy`` move their
 inputs to the card unless the caller passes ``device="cpu"``; without a card
 the default raises.
@@ -44,7 +60,9 @@ import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman, pscan
-from nsgp_tpu_torch.ops.kalman import Sites
+from nsgp_tpu_torch.ops.kalman import PackedTrajectory, Sites
+from nsgp_tpu_torch.ops.ssm import BlockSSM
+from nsgp_tpu_torch.parallel.collectives import all_reduce, gather, mesh_axis, scatter
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
 from nsgp_tpu_torch.utils.device import place_inputs
 from nsgp_tpu_torch.utils.precision import full_fp32
@@ -66,9 +84,10 @@ class EPConfig(NamedTuple):
     chunk: int = 512  # blocked-scan chunk of the parallel path (0 = the
     # one-level log-depth scan)
     jitter: float = 0.0  # smoother pseudo-prediction ridge (one-level path)
-    # Not ported yet (they raise NotImplementedError when set):
-    channel_axis: str = ""  # channel sharding
-    time_axis: str = ""  # time sharding
+    channel_axis: str = ""  # mesh axis to split the channels over (needs an
+    # ambient mesh: parallel.mesh.set_mesh / shard_inference_over_channels)
+    time_axis: str = ""  # mesh axis to split the blocked scan's chunks over
+    # (parallel=True, chunk > 0 only; shard_inference_over_time)
 
     def damp(self, itt: int) -> float:
         if len(self.damping) == 0:
@@ -97,8 +116,8 @@ def _check_config(cfg: EPConfig) -> None:
         "parallel": cfg.parallel and cfg.backend != "seq",
         # a chunk set without the path that reads it
         "chunk": not cfg.parallel and cfg.chunk != EPConfig._field_defaults["chunk"],
-        "channel_axis": bool(cfg.channel_axis),
-        "time_axis": bool(cfg.time_axis),
+        # time sharding splits the blocked scan's chunks: nothing else reads it
+        "time_axis": bool(cfg.time_axis) and not (cfg.parallel and cfg.chunk),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -158,19 +177,35 @@ def _ep_resite(
     return Sites(torch.clamp_min(ttau, 0.0), tnu), lZ
 
 
-def _forward_backward(ssm, sites: Sites, cfg: EPConfig):
+def _forward_backward(ssm, sites: Sites, cfg: EPConfig, time=None, T=None):
     """Filter with fixed sites + RTS smooth.  Returns flattened smoothed
-    trajectories (T, C*bs) / (T, C*bs*bs)."""
+    trajectories (T, C*bs) / (T, C*bs*bs).  ``time``: the axis over which
+    the blocked scan's chunks are split (``sites`` hold this rank's rows of a
+    ``T``-step signal)."""
     if cfg.backend == "fused":
         return fused_kalman.filter_smoother_fused(ssm, sites)
     if cfg.parallel:
         if cfg.chunk:
-            return bscan.blocked_filter_smoother(ssm, sites, cfg.chunk)
+            return bscan.blocked_filter_smoother(ssm, sites, cfg.chunk, axis=time, T=T)
         ms, Ps = pscan.filter_smoother_with_sites(ssm, sites, jitter=cfg.jitter)
         T = ms.shape[0]
         return ms.reshape(T, -1), Ps.reshape(T, -1)
     fr = kalman.filter_with_sites(ssm, sites, store=True, jitter=cfg.jitter)
     return kalman.rts_smoother(ssm, fr)
+
+
+def _channel_slice(ssm: BlockSSM, lo: int, hi: int, axis) -> BlockSSM:
+    """Channels [lo, hi) of ``ssm``, this rank's share under ``axis`` (the
+    first ``ssm.D`` channels are subbands)."""
+    n_sub = min(hi, ssm.D) - min(lo, ssm.D)
+    return BlockSSM(*(scatter(x, axis, 0, lo, hi) for x in ssm[:7]), D=n_sub,
+                    N=hi - lo - n_sub)
+
+
+def _traj_channels(traj: PackedTrajectory, lo: int, hi: int, bs: int, axis) -> PackedTrajectory:
+    """Channels [lo, hi) of a flattened (C-major) trajectory."""
+    return PackedTrajectory(scatter(traj.ms, axis, 1, lo * bs, hi * bs),
+                            scatter(traj.Ps, axis, 1, lo * bs * bs, hi * bs * bs))
 
 
 def ep_infer(
@@ -186,15 +221,18 @@ def ep_infer(
     ``params``, ``y`` and ``mask`` are moved to ``device`` (the card by
     default; without one that raises) and the computation runs there in the
     parameters' dtype.  Missing steps (mask False / NaN y) get pure GP
-    interpolation like the reference's NaN handling.
+    interpolation like the reference's NaN handling.  Under
+    ``config.channel_axis`` / ``time_axis`` the ranks of the ambient mesh
+    share the call (module docstring) and each returns the whole result.
     """
     _check_config(config)
+    chan, tax = mesh_axis(config.channel_axis), mesh_axis(config.time_axis)
     full_fp32()
     dev, params, y, mask = place_inputs(params, y, mask, device)
     ssm = model.build_ssm(params)
     dtype = ssm.A.dtype
     T = y.shape[0]
-    C = ssm.num_channels
+    C, bs = ssm.num_channels, ssm.block_size
     sites = kalman.init_sites(T, C, dtype, dev)
     mom_fn = _mom_point(model, params)
     fused = config.backend == "fused"
@@ -208,6 +246,28 @@ def ep_infer(
     last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
     last_only[-1] = True
 
+    # This rank's channels [c0, c1) and, from sweep 1's re-site on, its rows
+    # (all of them unsharded).
+    c0, c1 = chan.split(C) if chan else (0, C)
+    ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
+    own_channels = lambda s: Sites(s.ttau[:, c0:c1], s.tnu[:, c0:c1]) if chan else s
+    rows = slice(0, T)
+    if tax:
+        nc = -(-T // config.chunk)
+        if nc < tax.size:
+            raise ValueError(f"{nc} chunks of {config.chunk} steps cannot be split over "
+                             f"{tax.size} ranks of axis {tax.name!r}")
+        k0, k1 = tax.split(nc)
+        rows = slice(k0 * config.chunk, min(k1 * config.chunk, T))
+    split_rows = tax is not None and config.ep_itts > 1
+    y_r, mask_r = y[rows], mask[rows]
+
+    def marginals(ms, Ps):
+        mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
+        if chan:
+            mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
+        return mu, var
+
     nlZ = torch.zeros((config.ep_itts,), dtype=dtype, device=dev)
     maxdiff = torch.full((config.ep_itts,), float("inf"), dtype=dtype, device=dev)
     lZ_final = torch.zeros((T,), dtype=dtype, device=dev)
@@ -217,42 +277,50 @@ def ep_infer(
     for itt in range(config.ep_itts):
         damp = config.damp(itt)
         if itt == 0:
+            # Replicated: the moment match couples every channel at each step.
             if fused:
                 ms_f, Ps_f, lZ, sites = fused_kalman.adf_filter_fused(
                     model.moment_params(), ssm, params.W, params.lik, y, mask, damp
                 )
-                ms, Ps = fused_kalman.smoother_fused(ssm, ms_f, Ps_f)
+                ms, Ps = fused_kalman.smoother_fused(ssm_c, ms_f[:, c0:c1], Ps_f[:, c0:c1])
             else:
                 fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
                                                   match_mask=None, store=True)
-                ms, Ps = kalman.rts_smoother(ssm, fr)
+                ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
+                                             if chan else fr)
             nlZ[0] = -torch.sum(lZ)
             lZ_final = lZ
             lZ_last = lZ[-1]
         elif all_T:
-            ms, Ps = _forward_backward(ssm, sites, config)
+            ms, Ps = _forward_backward(ssm_c, own_channels(sites), config, tax, T)
         else:
             # Reference quirk: later forward passes still re-match the site
-            # at the very last step (itt == 1 || k == numel(yall) branch).
+            # at the very last step (itt == 1 || k == numel(yall) branch);
+            # that couples the channels, so this pass is replicated.
             fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
                                                   match_mask=last_only, store=True)
             lZ_last = lZ_fwd[-1]
-            ms, Ps = kalman.rts_smoother(ssm, fr)
+            ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
+                                         if chan else fr)
 
-        mu_new, var_new = kalman.observable_marginals(ssm, ms, Ps)
+        mu_new, var_new = marginals(ms, Ps)
+        if itt == 0 and split_rows:
+            mu_new, var_new = mu_new[rows], var_new[rows]
+            sites = Sites(sites.ttau[rows], sites.tnu[rows])
         if itt > 0:
             # Convergence monitor (ref gf_ep_modulator.m:279-289).
-            maxdiff[itt] = torch.maximum((mu_new - mu).abs().max(),
-                                         (var_new - var).abs().max())
+            md = torch.maximum((mu_new - mu).abs().max(), (var_new - var).abs().max())
+            maxdiff[itt] = all_reduce(md, tax, "max") if tax else md
         mu, var = mu_new, var_new
 
         if itt < config.ep_itts - 1:
-            sites, lZ = _ep_resite(model, params, config, y, mask, mu, var, sites,
+            sites, lZ = _ep_resite(model, params, config, y_r, mask_r, mu, var, sites,
                                    config.damp(itt + 1), exclude_last=seq)
             if seq:
                 lZ = lZ.clone()
                 lZ[-1] = lZ_last
-            nlZ[itt + 1] = -torch.sum(lZ)
+            total = torch.sum(lZ)
+            nlZ[itt + 1] = -(all_reduce(total, tax) if tax else total)
             lZ_final = lZ
 
     if seq and config.ep_itts > 1:
@@ -260,6 +328,14 @@ def ep_infer(
         # the reference's out.lZ carries that fresher value (:141, :313).
         lZ_final = lZ_final.clone()
         lZ_final[-1] = lZ_last
+    if chan:
+        ms = gather(ms, chan, 1, c0 * bs, C * bs)
+        Ps = gather(Ps, chan, 1, c0 * bs * bs, C * bs * bs)
+    if split_rows:
+        mu, var, lZ_final, tt, tn, ms, Ps = (
+            gather(x, tax, 0, rows.start, T)
+            for x in (mu, var, lZ_final, sites.ttau, sites.tnu, ms, Ps))
+        sites = Sites(tt, tn)
 
     return EPResult(Eft=mu, Varft=var, lZ=lZ_final, sites=sites, nlZ=nlZ,
                     ms=ms, Ps=Ps, maxdiff=maxdiff)
@@ -282,16 +358,22 @@ def ep_energy(
     Always the sequential engine, whatever ``config.backend`` says, with the
     reference's last-site bookkeeping: re-sites at ``config.damp(itt)``, the
     last step never re-sited backward, and later forward passes re-matching
-    only the last site.
+    only the last site.  Under ``config.channel_axis`` each rank smooths its
+    channels and the marginals are gathered with their gradient (every rank
+    returns the same energy; its backward pass exchanges too).
     """
     _check_config(config)
+    chan = mesh_axis(config.channel_axis)
     full_fp32()
     dev, params, y, mask = place_inputs(params, y, mask, device)
     ssm = model.build_ssm(params)
     dtype = ssm.A.dtype
     T = y.shape[0]
-    sites = kalman.init_sites(T, ssm.num_channels, dtype, dev)
+    C, bs = ssm.num_channels, ssm.block_size
+    sites = kalman.init_sites(T, C, dtype, dev)
     mom_fn = _mom_point(model, params)
+    c0, c1 = chan.split(C) if chan else (0, C)
+    ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
 
     # Sweep 1: ADF; this is the lZ if ep_itts == 1.
     fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(0),
@@ -300,8 +382,13 @@ def ep_energy(
     last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
     last_only[-1] = True
     for itt in range(1, config.ep_itts):
-        ms, Ps = kalman.rts_smoother(ssm, fr)
-        mu, var = kalman.observable_marginals(ssm, ms, Ps)
+        if chan:
+            ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan))
+            mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
+            mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
+        else:
+            ms, Ps = kalman.rts_smoother(ssm, fr)
+            mu, var = kalman.observable_marginals(ssm, ms, Ps)
         sites, lZ = _ep_resite(model, params, config, y, mask, mu, var, sites,
                                config.damp(itt), exclude_last=True)
         lZ = torch.cat([lZ[:-1], lZ_last[None]])

@@ -19,7 +19,6 @@ degrading with distortion.
 from __future__ import annotations
 
 import numpy as np
-from scipy.signal import resample_poly
 
 FS_STOI = 10_000  # internal sample rate of the measure
 FRAME = 256  # analysis frame (25.6 ms at 10 kHz)
@@ -62,6 +61,8 @@ def stoi(clean, degraded, fs: float) -> float:
         raise ValueError("clean/degraded length mismatch")
     fs = int(round(fs))
     if fs != FS_STOI:
+        from scipy.signal import resample_poly  # 3 s to import: only where it resamples
+
         g = np.gcd(fs, FS_STOI)
         x = resample_poly(x, FS_STOI // g, fs // g)
         y = resample_poly(y, FS_STOI // g, fs // g)

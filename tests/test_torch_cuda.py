@@ -726,3 +726,64 @@ def test_denoise_card_matches_cpu(cuda):
                       0.04, stat_spec=S.to(r.y_hat.device), stat_floor=1.0)
         outs.append([r.result.Eft.cpu(), r.result.Varft.cpu(), r.y_hat.cpu(), w.cpu()])
     assert _rel(*outs) <= TRAIN_TOL
+
+
+def _channel_rank(rank, T):
+    """A rank of a 2-rank gloo world on the one card: fused EP (K3, then K1
+    and K2 on the rank's channels) sharded by channel, against the unsharded
+    call on the same rank; float64, D=16, N=3 (C = 19 split 10/9)."""
+    from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+    from nsgp_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda")
+    D, N = 16, 3
+    rng = np.random.default_rng(0)
+    model = GTNMFModel(D=D, N=N, kernel1="matern32", kernel2="matern52", p_cubature=9)
+    params = GTNMFParams(
+        lik=np.float64(1e-3), sub_var=np.ones(D), sub_len=np.linspace(50.0, 300.0, D),
+        omega=np.linspace(0.05, 2.8, D), mod_var=np.full(N, 2.0),
+        mod_len=np.linspace(800.0, 2500.0, N), W=rng.uniform(0.1, 1.0, (D, N)),
+    ).to(dtype=torch.float64, device=dev)
+    y, _, _ = sample_prior(torch.Generator().manual_seed(5), model, params, T)
+    cfg = EPConfig(ep_itts=3, backend="fused")
+    ref = ep_infer(model, params, y, None, cfg)
+    fk.reset_launches()
+    res = pmesh.shard_inference_over_channels(model, params, y, pmesh.make_mesh({"channel": 2}),
+                                              cfg)
+    launches = {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    fields = ("Eft", "Varft", "nlZ", "ms", "Ps", "lZ")
+    return dict(rel=_rel([getattr(res, f) for f in fields], [getattr(ref, f) for f in fields]),
+                launches=launches, device=res.Eft.device.type, index=res.Eft.device.index)
+
+
+@pytest.mark.cuda
+def test_channel_sharded_fused_ep_on_card(cuda, tmp_path):
+    """``shard_inference_over_channels`` on the fused path, 2 ranks sharing
+    the card over gloo (NCCL refuses two ranks on one GPU): each rank's
+    result equals the unsharded call at 1e-9, K3 runs once (replicated),
+    K1 and K2 on the rank's 10 or 9 channels as often as unsharded."""
+    from nsgp_tpu_torch.ops import _build
+    from nsgp_tpu_torch.parallel import mesh as pmesh
+
+    _build.library()  # once, before the ranks load it
+    ranks = pmesh.spawn_world(_channel_rank, 2, "gloo", (1000,), root=str(tmp_path))
+    for r in ranks:
+        assert r["device"] == "cuda" and r["rel"] <= TOL[torch.float64], r
+        assert r["launches"] == {"fused_fwd": 2, "fused_bwd": 3, "fused_adf": 1,
+                                 "fused_adf_mb": 0}, r
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="nccl runs one GPU a rank: needs 2 GPUs")
+def test_channel_sharded_fused_ep_over_nccl(cuda, tmp_path):
+    """The same split over nccl, one GPU a rank: rank r runs on GPU r and
+    its result equals the unsharded call at 1e-9."""
+    from nsgp_tpu_torch.ops import _build
+    from nsgp_tpu_torch.parallel import mesh as pmesh
+
+    _build.library()
+    ranks = pmesh.spawn_world(_channel_rank, 2, "nccl", (1000,), root=str(tmp_path))
+    for rank, r in enumerate(ranks):
+        assert r["device"] == "cuda" and r["index"] == rank, r
+        assert r["rel"] <= TOL[torch.float64], r
+        assert r["launches"]["fused_adf"] == 1, r

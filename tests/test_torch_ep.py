@@ -115,7 +115,10 @@ def test_unported_config_fields_raise(field, value):
     one-level log-depth scans) and ``jitter`` are ported: those two cases
     run, on ``backend="seq"``, against JAX's ``ep_infer`` at rtol 1e-8 (the
     jitter on the one-level path, the only one where JAX's acts; the T=32
-    signal has a NaN gap)."""
+    signal has a NaN gap).  ``channel_axis`` and ``time_axis`` are ported
+    (``tests/test_torch_mesh.py``): set without an ambient mesh they raise
+    ``RuntimeError``, as JAX's sharding constraint does (``time_axis`` on the
+    blocked path, the one that reads it)."""
     jm, jp = _toy()
     model, params = _port(jm, jp)
     kw = {field: value}
@@ -134,6 +137,14 @@ def test_unported_config_fields_raise(field, value):
                                        atol=1e-8 * np.abs(np.asarray(b)).max())
         return
     y = torch.zeros(8, dtype=torch.float64)
+    if field in ("channel_axis", "time_axis"):
+        if field == "time_axis":
+            kw.update(parallel=True, chunk=4)
+        with pytest.raises(RuntimeError):
+            jep.ep_infer(jm, jp, jnp.asarray(y.numpy()), None, jep.EPConfig(unroll=1, **kw))
+        with pytest.raises(RuntimeError, match="ambient mesh"):
+            tep.ep_infer(model, params, y, None, tep.EPConfig(**kw), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=field):
         tep.ep_infer(model, params, y, None, tep.EPConfig(**kw), device="cpu")
 

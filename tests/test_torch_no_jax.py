@@ -1,6 +1,7 @@
 """The port stands alone: importing and running ``nsgp_tpu_torch`` (inference,
-the pretraining pipeline, denoising and the experiment drivers among it, one
-driver run at a toy size) loads no jax and no ``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
+the pretraining pipeline, denoising, the device mesh and the experiment
+drivers among it, one driver run at a toy size) loads no jax and no
+``nsgp_tpu``; ``chip_smoke.py`` refuses to run without a card or
 outside a checkout, and imports neither package."""
 
 import ast
@@ -110,6 +111,13 @@ from nsgp_tpu_torch.experiments import source_sep as ss_driver
 res = synthetic.run(T=24, ep_itts=1, device="cpu", engine_kwargs={"giekf": {"g_iter": 1}})
 assert all(np.isfinite(res[e]["rmse_sig"]) for e in ("ep", "ihgp", "giekf"))
 assert md_driver.engine_config("ep", 20, device="cpu")["ep_itts"] == 20
+from nsgp_tpu_torch.experiments import figures, scaling_dryrun, speech_fit_probe
+from nsgp_tpu_torch.parallel import collectives
+from nsgp_tpu_torch.parallel import mesh as pmesh
+assert [c for c, _ in figures.aggregates_data()] == ["music", "speech"]
+assert speech_fit_probe._gap_mask("speech1_male", 900).shape == (900,)
+assert collectives.mesh_axis("") is None and callable(pmesh.make_train_step)
+assert scaling_dryrun.EP_ITTS == 2
 try:
     device.resolve_device(None)
     assert torch.cuda.is_available()
