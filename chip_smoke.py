@@ -54,22 +54,31 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
 7. the training path (``training_phase``): gradients and a fit card vs CPU at
    float64, one value and gradient at T=8000 float32, a 3-step fit then a
    gap fill on the fused path, HMC/VI, GIEKF; its line ``{"training": ...}``.
-8. the IHGP path (``ihgp_phase``, plain torch: no kernel of its own, as JAX's
-   IHGP reaches no Pallas kernel) at the headline model: (a) the DARE bank
-   card vs CPU at float64 at the default grid and at ``grid_lo=-7`` (every
-   table field, the failed coarse points per channel), its time in float32;
-   (b) ``ihgp_infer`` at T=1024 float64 card vs CPU in the sequential,
-   blocked (chunk 256) and one-level forms, grid indices equal;
-   ``ihgp_energy`` and its gradient over every leaf; ``ep_infer`` on
+8. the IHGP path (``ihgp_phase``) at the headline model: its sequential
+   passes are K5 ``fused_ihgp_adf`` (the steady ADF sweep) and K6
+   ``fused_ihgp_smooth`` (the steady smoother), counterparts of the two
+   scans JAX compiles; every path's K5 and K6 launches are counted (the
+   sequential form K5 and K6 once a sweep, the parallel forms K5 once).
+   (a) the DARE bank card vs CPU at float64 at the default grid and at
+   ``grid_lo=-7`` (every table field, the failed coarse points per
+   channel), its time in float32; (b) ``ihgp_infer`` at T=1024 float64
+   card (K5, K6) vs CPU (their twins) in the sequential, blocked (chunk
+   256) and one-level forms, grid indices equal; ``ihgp_energy`` (K5's
+   plain twin on both) and its gradient over every leaf; ``ep_infer`` on
    ``backend="seq"`` with the one-level scans, with and without ``jitter``;
-   (c) float32 at T=16 000: ``ihgp_energy`` (us a step of sweep 1, its gap
-   to float64), ``ihgp-seq`` and ``ihgp-blocked`` (bench.py:222-228);
+   (c) K5 and K6 against their plain twins at the headline width: float64
+   at T=4096 (grid indices equal, 1e-9), float32 over T=100 000 against the
+   twins over 4096 steps (K5's index flips counted, its energy held to
+   1e-3), both timed at T=100 000; float32 at T=16 000: sweep 1 through K5
+   (us a step, its energy's gap to float64), ``ihgp_energy``'s plain loop
+   at T=2048, ``ihgp-seq`` and ``ihgp-blocked`` (bench.py:222-228);
    (d) ``ihgp-blocked`` at T=100 000 (50 000 if (c) predicts sweep 1 over
-   150 s there), s/sweep; (e) ``separate()`` with its default engine at
-   mixture width (T=2048 float32; T=256 float64 card vs CPU) and
-   ``infer_batch("ihgp")`` over three corpus models (T=4096), its last file
-   against the single-file engine; the launch counters read 0 for K1-K4
-   over 8c-8e.
+   150 s there), s/sweep; (e) K5 at mixture width (D=48, N=9, 3973 sigma
+   points, a cluster of 8 CTAs) against its twin over 256 steps in both
+   types; ``separate()`` with its default engine at mixture width (T=2048
+   float32; T=256 float64 card vs CPU) and ``infer_batch("ihgp")`` over
+   three corpus models (T=4096), its last file against the single-file
+   engine; the launch counters read 0 for K1-K4 over 8c-8e.
    Its line ``{"ihgp": ...}`` follows the training line.
 9. the denoising path (``denoise_phase``): a raw signal to a trained model to
    denoised speech (experiments/denoising.py:55-160 on a seeded draw from the
@@ -202,6 +211,10 @@ IH_CORPUS_KW = dict(ep_itts=3, ep_fraction=0.75, damping=(0.1, 0.025), grid_lo=-
 T_IH_PARITY, T_IH_EP, T_IH_TRAIN, T_IH_CUT = 1024, 256, 16_000, 50_000
 T_IH_MIX, T_IH_MIX_F64, T_IH_BATCH, BF_IH = 2048, 256, 4096, 3
 IH_SWEEP1_LIMIT_S = 150.0
+# K5 and K6 against their plain twins (a Python loop over T, 1-2 ms a step on
+# the card): the twins over 4096 steps at the headline width, 256 at mixture
+# width; the energy's plain loop (ihgp_energy) timed over 2048 steps.
+T_IH_KERNEL, T_IH_MIX_KERNEL, T_IH_ENERGY = 4096, 256, 2048
 TOL_IH_GRAD = 1e-9
 
 # The denoising path (phase 9): experiments/denoising.py:55-160 on one speech
@@ -257,8 +270,9 @@ EXP_CUTS = {
     "giekf": f"T 53 248 -> {T_CUT} (three files cut), itts (1, 20) -> {GIEKF_ITTS}: GIEKF is "
              "a Python loop over T of dense (57 x 57) steps, 0.7-1.7 ms a step on the card; "
              "at T=2048 (c) and (d) took 96 s of a 159 s phase on a slow host",
-    "ihgp": f"the same three files at T={T_CUT}, itts (1, 20) -> {IHGP_ITTS}: IHGP's sweep 1 "
-            "is a Python loop over T, 1.2-2.0 ms a step on the card (PERF.md)",
+    "ihgp": f"the same three files at T={T_CUT}, itts (1, 20) -> {IHGP_ITTS}: the arm's later "
+            "sweeps run the blocked steady passes, Python loops over a 2048-step chunk, "
+            "0.35-0.47 s a pass on the card (PERF.md); sweep 1 is one launch of K5",
     "synthetic": f"T 4000 -> {T_SYN}, ep_itts 4 -> {SYN_ITTS}: the engines' Python loops",
     "train_hyperopt": f"T 4096 -> {T_HO} (speech0_female's first reference gap at 1500 "
                       "fits): a value and gradient of the ADF energy costs about 7 ms a "
@@ -283,12 +297,18 @@ TOL_REAL = 1e-8
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_F32 = 67e12
 
-# The Pallas kernel body each CUDA kernel replaces, and its source.
+# What each CUDA kernel replaces in the JAX package, and its source: the
+# Pallas kernel bodies (K1-K4), and the two scans that JAX compiles IHGP's
+# sequential passes into (K5, K6: counterparts of compiled scans, not of
+# Pallas kernels).
 KERNELS = {
     "fused_fwd": ("nsgp_tpu/ops/pallas_kalman.py:112", "fused_kalman.cuh"),  # _fwd_kernel
     "fused_bwd": ("nsgp_tpu/ops/pallas_kalman.py:158", "fused_kalman.cuh"),  # _bwd_kernel
     "fused_adf": ("nsgp_tpu/ops/pallas_kalman.py:226", "fused_adf.cuh"),  # _adf_kernel
     "fused_adf_mb": ("nsgp_tpu/ops/pallas_kalman.py:341", "fused_adf_mb.cuh"),  # _adf_kernel_mb
+    # the lax.scan of _steady_filter_seq and of _steady_smoother
+    "fused_ihgp_adf": ("nsgp_tpu/inference/ihgp.py:402", "fused_ihgp_adf.cuh"),
+    "fused_ihgp_smooth": ("nsgp_tpu/inference/ihgp.py:658", "fused_ihgp_smooth.cuh"),
 }
 
 
@@ -948,10 +968,85 @@ def training_phase(smi, dev):
     return out
 
 
+def k5_inputs(model, params, y, cfg):
+    """What ``ihgp_infer`` hands K5's wrapper on sweep 1 of (model, params,
+    y) (zero sites, every step observed and matched): (args, kwargs,
+    tables), taken by passing a recorder as the engine's sweep."""
+    import torch
+
+    from nsgp_tpu_torch.inference import ihgp
+    from nsgp_tpu_torch.ops.kalman import Sites
+
+    got = {}
+
+    def record(*a, **k):
+        got["args"], got["kwargs"] = a, k
+        return (None,) * 5
+
+    ssm = model.build_ssm(params)
+    tables = ihgp.build_tables(ssm, cfg)
+    zeros = torch.zeros((y.shape[0], ssm.num_channels), dtype=ssm.A.dtype, device=y.device)
+    seen = torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
+    ihgp._steady_filter_seq(ssm, tables, y, seen, Sites(zeros, zeros), model.moment_params(),
+                            params.W, params.lik, cfg.damp(0), seen, sweep=record)
+    return got["args"], got["kwargs"], tables
+
+
+def steady_compare(label, name, got, ref, tol, plain_ms=None):
+    """Hold K5's outputs (ms, idx, lZ, ttau, tnu) against its twin's on the
+    rows the twin ran.  float64 (``tol`` given): grid indices equal and the
+    rest within ``tol``.  float32 (``tol`` None): a flipped index sends the
+    trajectory to the neighbouring table row, so the error is taken over the
+    rows before the first flip; the flips are counted and the energy
+    (-sum lZ) over the rows held to the float32 health bar, 1e-3."""
+    n_ref = ref[0].shape[0]
+    got = [x[:n_ref] for x in got]
+    flips = got[1] != ref[1]
+    n_flips = int(flips.sum().item())
+    rows = flips.any(dim=1)
+    first = int(rows.nonzero()[0, 0].item()) if n_flips else n_ref
+    floats = lambda xs: [xs[0], xs[2], xs[3], xs[4]]
+    err_abs, err_rel = max_err([x[:first] for x in floats(got)], [x[:first] for x in floats(ref)])
+    e_gap = rel_err(-got[2].double().sum(), -ref[2].double().sum())
+    log(f"{label} {name}: {n_flips} index flips of {flips.numel()} (first at step "
+        f"{first}), before it max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e}"
+        f"{'' if tol is None else f' (tol {tol:g})'}; energy rel gap {e_gap:.3e}"
+        f"{'' if plain_ms is None else f'; plain_ms={plain_ms:.1f} over {n_ref} steps'}")
+    if tol is not None:
+        require(n_flips == 0 and err_rel <= tol, f"{name} ({label}) disagrees with its plain twin")
+    else:
+        require(math.isfinite(err_rel) and e_gap < 1e-3,
+                f"{name} ({label}): float32 energy drifted from its plain twin")
+    return dict(index_flips=n_flips, first_flip=first, max_abs_err=err_abs, max_rel_err=err_rel,
+                energy_rel_gap=e_gap, steps=n_ref)
+
+
+def bound_ihgp_adf(T, D_, N_, S, bs, G, matched_steps, itemsize=4):
+    """K5: y, match, obs, lZ (T); tt_in, tn_in, tt, tn (T, C); idx (T, C)
+    int32; ms (T, C, bs); A, H, first, tab, W, the sigma points.  Per step
+    and channel: h'A m, A m, the gain and the site (2 bs^2 + 4 bs + 16) and
+    two lookups (about 40); per matched step the sigma points as K3's."""
+    C = D_ + N_
+    n = itemsize * (T * (4 + 4 * C + C * bs) + C * (bs * bs + bs + (G + 1) * (bs + 1))
+                    + D_ * N_ + S * (N_ + 1) + 5) + 4 * T * C
+    flops = T * C * (2 * bs * bs + 4 * bs + 56) + matched_steps * (S * sigma_flops(D_, N_) + 12 * C)
+    return bound(n, flops)
+
+
+def bound_ihgp_smooth(T, C, bs, gain_rows, itemsize=4):
+    """K6: ms, sm (T, C, bs), idx (T, C) int32, A, and the gain rows this
+    run's indices reach (``gain_rows`` distinct (channel, grid point)).  Per
+    step and channel: A mf, G (A mf), G m and two adds (6 bs^2 + 2 bs)."""
+    n = itemsize * (2 * T * C * bs + C * bs * bs + gain_rows * bs * bs) + 4 * T * C
+    return bound(n, T * C * (6 * bs * bs + 2 * bs))
+
+
 def ihgp_phase(smi, dev):
-    """Phase 8: the IHGP path on the card ``dev`` (plain torch: it reaches no
-    kernel of the port, as JAX's reaches no Pallas kernel).  Returns the
-    numbers of the ``ihgp`` line."""
+    """Phase 8: the IHGP path on the card ``dev``: its two sequential passes
+    are K5 (``fused_ihgp_adf``, the steady ADF sweep) and K6
+    (``fused_ihgp_smooth``), counterparts of the two scans JAX compiles;
+    the bank, the blocked and one-level passes and the re-site are plain
+    torch.  Returns the numbers of the ``ihgp`` line."""
     import torch
 
     from nsgp_tpu_torch.apps.source_sep import separate
@@ -959,14 +1054,31 @@ def ihgp_phase(smi, dev):
     from nsgp_tpu_torch.inference import ihgp
     from nsgp_tpu_torch.inference.batched import infer_batch
     from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+    from nsgp_tpu_torch.models import mixture
     from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFParams
     from nsgp_tpu_torch.ops import dare
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
     from nsgp_tpu_torch.ops import fused_kalman as fk
 
     t_phase = time.perf_counter()
     out = {"device": smi}
     counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    ih_counts = lambda: {fn.__name__: fn.launches for fn in fih.WRAPPERS}
+    launches = {}  # K5 and K6 launches per IHGP path
+
+    def counted(path, fn, want):
+        """Run ``fn`` with K5's and K6's counts set to 0 just before and read
+        just after; they must be ``want`` (K5, K6)."""
+        fih.reset_launches()
+        res = fn()
+        got = ih_counts()
+        launches[path] = got
+        require((got["fused_ihgp_adf"], got["fused_ihgp_smooth"]) == want,
+                f"IHGP path {path}: K5, K6 launched {got}, expected {want}")
+        return res
+
     cfg_seq, cfg_blk = ihgp.IHGPConfig(**IH_SEQ), ihgp.IHGPConfig(**IH_BLOCKED)
+    seq_want = (cfg_seq.ep_itts, cfg_seq.ep_itts)  # K5 and K6 every sweep; parallel: K5 once
 
     # ---- 8a: the DARE bank, card vs CPU, float64 ---------------------------------
     model, p64, y64 = bench_inputs(torch.float64, "cpu")
@@ -999,7 +1111,7 @@ def ihgp_phase(smi, dev):
     out["bank"]["card_f32_s"] = bank32_s
     log(f"phase8a build_tables f32 on the card: {bank32_s:.3f} s")
 
-    # ---- 8b: ihgp_infer in three forms, the energy's gradient, EP one-level --------
+    # ---- 8b: ihgp_infer in three forms (K5, K6 on the card), the energy's gradient --
     yp = y64[:T_IH_PARITY]
     lk = lambda r, cfg: ihgp._lookup_idx(ihgp._lookup_consts(ihgp.build_tables(
         model.build_ssm(p64.on(r.Eft.device)), cfg, smoother=False)), r.sites.ttau)
@@ -1007,7 +1119,8 @@ def ihgp_phase(smi, dev):
     for label, kw in (("seq", {}), ("blocked", dict(parallel=True, chunk=256)),
                       ("one_level", dict(parallel=True, chunk=0))):
         cfg = ihgp.IHGPConfig(**IH_SEQ, **kw)
-        rc, card_s = host_s(lambda: ihgp.ihgp_infer(model, p64, yp, None, cfg))
+        rc, card_s = host_s(lambda: counted(f"parity_{label}", lambda: ihgp.ihgp_infer(
+            model, p64, yp, None, cfg), seq_want if label == "seq" else (1, 0)))
         t0 = time.perf_counter()
         rh = ihgp.ihgp_infer(model, p64, yp, None, cfg, device="cpu")
         cpu_s = time.perf_counter() - t0
@@ -1016,20 +1129,23 @@ def ihgp_phase(smi, dev):
             (rc.Eft, rh.Eft), (rc.Varft, rh.Varft), (rc.lZ, rh.lZ), (rc.nlZ, rh.nlZ),
             (rc.sites.ttau, rh.sites.ttau), (rc.sites.tnu, rh.sites.tnu)))
         same_idx = torch.equal(lk(rc, cfg).cpu(), lk(rh, cfg))
-        log(f"phase8b ihgp_infer {label} T={T_IH_PARITY} f64: card vs cpu rel {rel:.3e} (tol "
-            f"{TOL_TRAIN:g}), grid indices equal {same_idx}; card {card_s:.2f} s, cpu "
-            f"{cpu_s:.2f} s; nlZ {rc.nlZ.cpu().tolist()}")
+        log(f"phase8b ihgp_infer {label} T={T_IH_PARITY} f64: card (K5, K6 "
+            f"{launches[f'parity_{label}']}) vs cpu rel {rel:.3e} (tol {TOL_TRAIN:g}), grid "
+            f"indices equal {same_idx}; card {card_s:.2f} s, cpu {cpu_s:.2f} s; nlZ "
+            f"{rc.nlZ.cpu().tolist()}")
         require(rel <= TOL_TRAIN and same_idx, f"ihgp_infer {label} on the card disagrees")
         out["parity"][label] = dict(rel=rel, card_s=card_s, cpu_s=cpu_s)
     grads = []
     for d in (dev, "cpu"):
         leaves = {k: getattr(p64, k).detach().to(d).requires_grad_(True) for k in PARAM_NAMES}
-        e = ihgp.ihgp_energy(model, GTNMFParams(**leaves), yp, None, device=d)
+        e = counted(f"energy_{torch.device(d).type}", lambda: ihgp.ihgp_energy(
+            model, GTNMFParams(**leaves), yp, None, device=d), (0, 0))
         grads.append(torch.cat([e.reshape(1).detach()] + [
             g.reshape(-1) for g in torch.autograd.grad(e, list(leaves.values()))]).cpu())
     g_rel = rel_err(*grads)
-    log(f"phase8b ihgp_energy and its gradient over every leaf T={T_IH_PARITY} f64: energy "
-        f"{grads[0][0].item():.10g}, card vs cpu rel {g_rel:.3e} (tol {TOL_IH_GRAD:g})")
+    log(f"phase8b ihgp_energy (K5's plain twin: autograd runs through it) and its gradient "
+        f"over every leaf T={T_IH_PARITY} f64: energy {grads[0][0].item():.10g}, card vs cpu "
+        f"rel {g_rel:.3e} (tol {TOL_IH_GRAD:g})")
     require(bool(torch.isfinite(grads[0]).all()) and g_rel <= TOL_IH_GRAD,
             "ihgp_energy's gradient on the card disagrees with the CPU")
     out["parity"]["energy_grad_rel"] = g_rel
@@ -1043,50 +1159,143 @@ def ihgp_phase(smi, dev):
         require(rel <= TOL_TRAIN, f"one-level EP ({label}) on the card disagrees with the CPU")
         out["parity"][f"ep_{label}_rel"] = rel
 
-    # ---- 8c: float32 at the training length ------------------------------------------
+    # ---- 8c: K5 and K6 against their twins; float32 at the training length ------------
     fk.reset_launches()
+    kern = {}
+    # float64 at the headline width: the twins over T_IH_KERNEL steps, K5 and K6 over all
+    a64, k64, tab64 = k5_inputs(model, p64.on(dev), y64[:T_IH_KERNEL].to(dev), cfg_seq)
+    run64 = lambda: fih.fused_ihgp_adf(*a64, **k64)
+    o64 = run64()
+    require(all(torch.equal(x, z) for x, z in zip(o64, run64())),
+            "K5: two runs on the same inputs differ in their bits")
+    ref64, k5_plain64_ms = timed_plain(lambda: fih.fused_ihgp_adf_plain(*a64, **k64))
+    kern["fused_ihgp_adf"] = dict(f64=steady_compare(
+        f"phase8c f64 T={T_IH_KERNEL} D={D} N={N} S=77", "fused_ihgp_adf", o64, ref64, TOL_F64,
+        k5_plain64_ms))
+    sm_args = (o64[0], o64[1], ssm_c.A, tab64.Gn)
+    sm64 = fih.fused_ihgp_smooth(*sm_args)
+    require(torch.equal(sm64, fih.fused_ihgp_smooth(*sm_args)),
+            "K6: two runs on the same inputs differ in their bits")
+    ref_sm, k6_plain64_ms = timed_plain(lambda: fih.fused_ihgp_smooth_plain(*sm_args))
+    e_abs, e_rel = max_err([sm64], [ref_sm])
+    log(f"phase8c f64 T={T_IH_KERNEL} fused_ihgp_smooth: max_abs_err={e_abs:.3e} "
+        f"max_rel_err={e_rel:.3e} (tol {TOL_F64:g}) plain_ms={k6_plain64_ms:.1f}")
+    require(e_rel <= TOL_F64, "K6 (f64) disagrees with its plain twin")
+    kern["fused_ihgp_smooth"] = dict(f64=dict(max_abs_err=e_abs, max_rel_err=e_rel,
+                                              steps=T_IH_KERNEL))
+    # float32 at the headline shape: K5 over all T_MAIN steps against its twin
+    # over the first T_IH_KERNEL (a forward recursion), K6 over all T against
+    # its twin over the last T_IH_KERNEL (a backward one)
+    a32, k32, tab32 = k5_inputs(model, p32, y32, cfg_seq)
+    run32 = lambda: fih.fused_ihgp_adf(*a32, **k32)
+    o32 = run32()
+    head = [x[:T_IH_KERNEL] if torch.is_tensor(x) and x.dim() and x.shape[0] == T_MAIN else x
+            for x in a32]
+    ref32, k5_plain_ms = timed_plain(lambda: fih.fused_ihgp_adf_plain(*head, **k32))
+    kern["fused_ihgp_adf"]["f32"] = steady_compare(
+        f"phase8c f32 T={T_MAIN} (plain over {T_IH_KERNEL} steps)", "fused_ihgp_adf", o32,
+        ref32, None, k5_plain_ms)
+    k5_ms = cuda_ms(run32, 3)
+    sm_args32 = (o32[0], o32[1], ssm32.A, tab32.Gn)
+    k6_ms = cuda_ms(lambda: fih.fused_ihgp_smooth(*sm_args32), 5)
+    sm32 = fih.fused_ihgp_smooth(*sm_args32)
+    ref_sm32, k6_plain_ms = timed_plain(lambda: fih.fused_ihgp_smooth_plain(
+        o32[0][-T_IH_KERNEL:], o32[1][-T_IH_KERNEL:], ssm32.A, tab32.Gn))
+    e_abs32, e_rel32 = max_err([sm32[-T_IH_KERNEL:]], [ref_sm32])
+    require(e_rel32 <= TOL_F32, "K6 (f32) disagrees with its plain twin")
+    C_h, bs_h = D + N, ssm32.block_size
+    gain_rows = int(torch.unique(o32[1] * C_h + torch.arange(C_h, device=dev)).numel())
+    kern["fused_ihgp_adf"].update(
+        ms=k5_ms, plain_ms=k5_plain_ms, plain_steps=T_IH_KERNEL, max_abs_err=kern[
+            "fused_ihgp_adf"]["f64"]["max_abs_err"],
+        bound=bound_ihgp_adf(T_MAIN, D, N, 77, bs_h, tab32.Ph.shape[1], T_MAIN),
+        **fk.adf_launch_shape(77))
+    kern["fused_ihgp_smooth"].update(
+        ms=k6_ms, plain_ms=k6_plain_ms, plain_steps=T_IH_KERNEL, max_abs_err=e_abs,
+        f32=dict(max_abs_err=e_abs32, max_rel_err=e_rel32, steps=T_IH_KERNEL),
+        bound=bound_ihgp_smooth(T_MAIN, C_h, bs_h, gain_rows))
+    log(f"phase8c f32 T={T_MAIN} fused_ihgp_smooth (plain over the last {T_IH_KERNEL} steps): "
+        f"max_abs_err={e_abs32:.3e} max_rel_err={e_rel32:.3e} (tol {TOL_F32:g}); on {smi}: "
+        f"K5 {k5_ms:.2f} ms ({1e3 * k5_ms / T_MAIN:.3f} us/step; bound "
+        f"{kern['fused_ihgp_adf']['bound'][0]:.3f} ms), K6 {k6_ms:.3f} ms (bound "
+        f"{kern['fused_ihgp_smooth']['bound'][0]:.4f} ms); plain twins {k5_plain_ms:.0f} and "
+        f"{k6_plain_ms:.0f} ms over {T_IH_KERNEL} steps")
+    del o32, sm32, a32, head
+
+    # sweep 1 through K5 at the training length, its float32 health gap
     yt = y32[:T_IH_TRAIN]
     for cfg in (cfg_seq, cfg_blk):  # first float32 use of each op outside the timings
         ihgp.ihgp_infer(model, p32, yt[:256], None, cfg)
-    with torch.no_grad():
-        e32, energy_s = host_s(lambda: ihgp.ihgp_energy(model, p32, yt, None, cfg_seq))
-        # the float64 reference on the host CPU: the same code (8b: card and
-        # CPU agree to rounding), and the faster of the two for this loop
-        e64 = ihgp.ihgp_energy(model, p64, y64[:T_IH_TRAIN], None, cfg_seq, device="cpu")
+    at, kt, _ = k5_inputs(model, p32, yt, cfg_seq)
+    (_, _, lZ32, _, _), sweep1_s = host_s(lambda: fih.fused_ihgp_adf(*at, **kt))
+    a64t, k64t, _ = k5_inputs(model, p64.on(dev), y64[:T_IH_TRAIN].to(dev), cfg_seq)
+    lZ64 = fih.fused_ihgp_adf(*a64t, **k64t)[2]
+    e32, e64 = -lZ32.double().sum(), -lZ64.sum()
     gap = rel_err(e32.cpu(), e64.cpu())
-    us_step = 1e6 * energy_s / T_IH_TRAIN
-    r_seq, seq_s = host_s(lambda: ihgp.ihgp_infer(model, p32, yt, None, cfg_seq))
-    r_blk, blk_s = host_s(lambda: ihgp.ihgp_infer(model, p32, yt, None, cfg_blk))
+    us_step = 1e6 * sweep1_s / T_IH_TRAIN
+    with torch.no_grad():
+        ihgp.ihgp_energy(model, p32, yt[:256], None, cfg_seq)
+        _, energy_s = host_s(lambda: ihgp.ihgp_energy(model, p32, yt[:T_IH_ENERGY], None, cfg_seq))
+    r_seq, seq_s = host_s(lambda: counted("seq_16000", lambda: ihgp.ihgp_infer(
+        model, p32, yt, None, cfg_seq), seq_want))
+    r_blk, blk_s = host_s(lambda: counted("blocked_16000", lambda: ihgp.ihgp_infer(
+        model, p32, yt, None, cfg_blk), (1, 0)))
     for label, r in (("ihgp-seq", r_seq), ("ihgp-blocked", r_blk)):
         check_posterior(f"phase8c {label}", r.nlZ, r.Eft, r.Varft, (T_IH_TRAIN, D + N))
-    log(f"phase8c T={T_IH_TRAIN} f32 on {smi}: ihgp_energy (bank + sweep 1) {energy_s:.2f} s = "
-        f"{us_step:.0f} us/step; f32 vs f64 energy {e32.item():.8g} vs {e64.item():.8g}, rel "
-        f"gap {gap:.3e} (bar 1e-3); ihgp-seq {seq_s:.2f} s (sweeps 2-3 "
-        f"{(seq_s - energy_s) / 2:.2f} s each by difference), nlZ {r_seq.nlZ.cpu().tolist()}; "
-        f"ihgp-blocked {blk_s:.2f} s (sweeps 2-3 {(blk_s - energy_s) / 2:.2f} s each), nlZ "
-        f"{r_blk.nlZ.cpu().tolist()}")
-    require(math.isfinite(gap) and gap < 1e-3, "float32 ihgp_energy drifted from float64")
-    out["t16000"] = dict(T=T_IH_TRAIN, energy_s=energy_s, sweep1_us_per_step=us_step,
-                         energy_rel_gap_f64=gap, seq_s=seq_s, blocked_s=blk_s,
-                         seq_later_sweep_s=(seq_s - energy_s) / 2,
-                         blocked_later_sweep_s=(blk_s - energy_s) / 2)
+    log(f"phase8c T={T_IH_TRAIN} f32 on {smi}: sweep 1 (K5, tables built) {sweep1_s:.4f} s = "
+        f"{us_step:.2f} us/step; its energy f32 vs f64 {e32.item():.8g} vs {e64.item():.8g}, "
+        f"rel gap {gap:.3e} (bar 1e-3); ihgp_energy (bank + K5's plain twin) at "
+        f"T={T_IH_ENERGY} {energy_s:.2f} s = {1e6 * energy_s / T_IH_ENERGY:.0f} us/step; "
+        f"ihgp-seq {seq_s:.2f} s (K5, K6 {launches['seq_16000']}), nlZ "
+        f"{r_seq.nlZ.cpu().tolist()}; ihgp-blocked {blk_s:.2f} s (K5, K6 "
+        f"{launches['blocked_16000']}), nlZ {r_blk.nlZ.cpu().tolist()}")
+    require(math.isfinite(gap) and gap < 1e-3, "float32 sweep 1 drifted from float64")
+    out["t16000"] = dict(T=T_IH_TRAIN, sweep1_s=sweep1_s, sweep1_us_per_step=us_step,
+                         energy_rel_gap_f64=gap, energy_plain_T=T_IH_ENERGY,
+                         energy_plain_s=energy_s, seq_s=seq_s, blocked_s=blk_s)
 
     # ---- 8d: the headline shape --------------------------------------------------------
     predicted = us_step * T_MAIN / 1e6
     T_d = T_MAIN if predicted <= IH_SWEEP1_LIMIT_S else T_IH_CUT
-    r_d, d_s = host_s(lambda: ihgp.ihgp_infer(model, p32, y32[:T_d], None, cfg_blk))
+    r_d, d_s = host_s(lambda: counted("headline_blocked", lambda: ihgp.ihgp_infer(
+        model, p32, y32[:T_d], None, cfg_blk), (1, 0)))
     check_posterior("phase8d ihgp-blocked", r_d.nlZ, r_d.Eft, r_d.Varft, (T_d, D + N))
     log(f"phase8d ihgp-blocked T={T_d} f32 on {smi}: {d_s:.2f} s, {d_s / 3:.3f} s/sweep "
-        f"(sweep 1 predicted {predicted:.0f} s at T={T_MAIN}"
+        f"(sweep 1 predicted {predicted:.2f} s at T={T_MAIN}"
         f"{'' if T_d == T_MAIN else f', over {IH_SWEEP1_LIMIT_S:.0f} s: cut to T={T_d}'}); nlZ "
         f"{r_d.nlZ.cpu().tolist()}")
     out["headline"] = dict(T=T_d, s=d_s, s_per_sweep=d_s / 3, sweep1_predicted_s=predicted,
                            nlZ=r_d.nlZ.cpu().tolist())
 
-    # ---- 8e: separate() with its default engine, batched IHGP ---------------------------
+    # ---- 8e: K5 at mixture width; separate() with its default engine, batched IHGP ----
+    cfg_mix = ihgp.IHGPConfig(**IH_MIX_KW)
+    for dtype, label in ((torch.float64, "f64"), (torch.float32, "f32")):
+        models, plist, y_mix, _ = mixture_inputs(dtype, dev, T_IH_MIX)
+        jm, jp, _ = mixture.join_models(models, plist, lik=MIX_LIK)
+        am, km, _ = k5_inputs(jm, jp, y_mix, cfg_mix)
+        S_mix = fk.sigma_points(km["mp"], dtype, dev)[0].shape[0]
+        om = fih.fused_ihgp_adf(*am, **km)
+        head = [x[:T_IH_MIX_KERNEL] if torch.is_tensor(x) and x.dim() and x.shape[0] == T_IH_MIX
+                else x for x in am]
+        refm, plain_m = timed_plain(lambda: fih.fused_ihgp_adf_plain(*head, **km))
+        kern["fused_ihgp_adf"][f"mixture_{label}"] = steady_compare(
+            f"phase8e {label} T={T_IH_MIX} D={jm.D} N={jm.N} S={S_mix} cluster="
+            f"{fk.adf_launch_shape(S_mix)['cluster']} (plain over {T_IH_MIX_KERNEL} steps)",
+            "fused_ihgp_adf", om, refm, TOL_F64 if dtype == torch.float64 else None, plain_m)
+        if dtype == torch.float32:
+            mix_ms = cuda_ms(lambda: fih.fused_ihgp_adf(*am, **km), 3)
+            bs_mx = jm.build_ssm(jp).block_size
+            kern["fused_ihgp_adf"]["mixture"] = dict(
+                ms=mix_ms, plain_ms=plain_m, plain_steps=T_IH_MIX_KERNEL,
+                bound=bound_ihgp_adf(T_IH_MIX, jm.D, jm.N, S_mix, bs_mx, cfg_mix.grid_fine,
+                                     T_IH_MIX),
+                shape=f"T={T_IH_MIX} D={jm.D} N={jm.N} S={S_mix} bs={bs_mx} f32",
+                **fk.adf_launch_shape(S_mix))
+            log(f"phase8e K5 at mixture width T={T_IH_MIX} f32 on {smi}: {mix_ms:.2f} ms "
+                f"({1e3 * mix_ms / T_IH_MIX:.2f} us/step)")
     models, plist, y_mix, parts = mixture_inputs(torch.float32, dev, T_IH_MIX)
-    sep, sep_s = host_s(lambda: separate(models, plist, y_mix, true_sources=parts,
-                                         mixture_lik=MIX_LIK, **IH_MIX_KW))
+    sep, sep_s = host_s(lambda: counted("separate", lambda: separate(
+        models, plist, y_mix, true_sources=parts, mixture_lik=MIX_LIK, **IH_MIX_KW), (1, 0)))
     require(bool(torch.isfinite(sep.sources).all()) and bool(torch.isfinite(sep.snr).all())
             and bool(torch.isfinite(sep.result.nlZ).all()), "non-finite IHGP separation")
     m64, pm64, ym64, parts64 = mixture_inputs(torch.float64, dev, T_IH_MIX_F64)
@@ -1096,9 +1305,9 @@ def ihgp_phase(smi, dev):
         (seps[0].sources, seps[1].sources), (seps[0].result.Eft, seps[1].result.Eft),
         (seps[0].result.Varft, seps[1].result.Varft), (seps[0].result.nlZ, seps[1].result.nlZ)))
     log(f"phase8e separate (default engine ihgp, C={sep.result.Eft.shape[1]}) "
-        f"T={T_IH_MIX} f32: {sep_s:.2f} s, SNR {sep.snr.cpu().tolist()} dB, nlZ "
-        f"{sep.result.nlZ.cpu().tolist()}; T={T_IH_MIX_F64} f64 card vs cpu rel {sep_rel:.3e} "
-        f"(tol {TOL_TRAIN:g})")
+        f"T={T_IH_MIX} f32: {sep_s:.2f} s (K5, K6 {launches['separate']}), SNR "
+        f"{sep.snr.cpu().tolist()} dB, nlZ {sep.result.nlZ.cpu().tolist()}; T={T_IH_MIX_F64} "
+        f"f64 card vs cpu rel {sep_rel:.3e} (tol {TOL_TRAIN:g})")
     require(sep_rel <= TOL_TRAIN, "IHGP separation on the card disagrees with the CPU")
     with open(os.path.join(ROOT, CORPUS)) as f:
         names = [r["file"] for r in json.load(f)["files"] if r["kernel1"] == "matern32"][:BF_IH]
@@ -1109,24 +1318,26 @@ def ihgp_phase(smi, dev):
     yB = torch.tensor(yB.astype(np.float32), device=dev)
     maskB = torch.ones_like(yB, dtype=torch.bool)
     maskB[:, 1500 - 1 - GAP_HALF:1500 + GAP_HALF] = False
-    rb, batch_s = host_s(lambda: infer_batch("ihgp", cmodel, cpB, yB, maskB, **IH_CORPUS_KW))
+    rb, batch_s = host_s(lambda: counted("batch", lambda: infer_batch(
+        "ihgp", cmodel, cpB, yB, maskB, **IH_CORPUS_KW), (BF_IH, 0)))
     b = BF_IH - 1
     r1 = ihgp.ihgp_infer(cmodel, cpB.select(b), yB[b], maskB[b], ihgp.IHGPConfig(**IH_CORPUS_KW))
     same = all(torch.equal(x[b], y) for x, y in ((rb.Eft, r1.Eft), (rb.Varft, r1.Varft),
                                                   (rb.nlZ, r1.nlZ), (rb.sites.ttau, r1.sites.ttau)))
     require(bool(torch.isfinite(rb.nlZ).all()), "non-finite batched IHGP energies")
     log(f"phase8e infer_batch('ihgp') BF={BF_IH} ({', '.join(names)}) T={T_IH_BATCH} f32: "
-        f"{batch_s:.2f} s, nlZ {rb.nlZ[:, -1].cpu().tolist()}; file {b} the same bits as the "
-        f"single-file engine: {same}")
+        f"{batch_s:.2f} s (K5, K6 {launches['batch']}), nlZ {rb.nlZ[:, -1].cpu().tolist()}; "
+        f"file {b} the same bits as the single-file engine: {same}")
     require(same, "batched IHGP differs from the single-file engine")
-    launches = counts()
-    log(f"phase8 launches of K1-K4 on the IHGP path (8c-8e): {launches}")
-    require(all(v == 0 for v in launches.values()),
+    k14 = counts()
+    log(f"phase8 launches of K1-K4 on the IHGP path (8c-8e): {k14}; K5, K6 per path: {launches}")
+    require(all(v == 0 for v in k14.values()),
             "the IHGP path launched a kernel that JAX's IHGP does not use")
     out.update(separate=dict(T=T_IH_MIX, s=sep_s, snr_db=sep.snr.cpu().tolist(),
                              f64_T=T_IH_MIX_F64, card_vs_cpu_rel=sep_rel),
                batch=dict(BF=BF_IH, T=T_IH_BATCH, s=batch_s, same_bits_as_single=same),
-               launches=launches, phase8_s=time.perf_counter() - t_phase)
+               launches=k14, ihgp_launches=launches, kernels=kern,
+               phase8_s=time.perf_counter() - t_phase)
     log(f"phase8 done in {out['phase8_s']:.0f} s")
     return out
 
@@ -2253,9 +2464,12 @@ def main() -> int:
 
     # ---- the kernels line --------------------------------------------------------
     # One entry per kernel at its main path's shape: K1-K3 the single-signal
-    # path (phase 2), K4 the batched path (phase 5).  `launches` is that run's
-    # count; `launches_by_path` has all four paths (phase 10's corpus grid as
-    # "experiments").  `plain_ms` is the plain
+    # path (phase 2), K4 the batched path (phase 5), K5 and K6 the IHGP path
+    # (phase 8: timed at the headline shape, `launches` from 8c's ihgp-seq
+    # call at T=16 000, `launches_by_path` every IHGP call of phase 8, K5's
+    # `max_abs_err` its float64 check, `checks` all of them).  `launches` is
+    # that run's count; K1-K4's `launches_by_path` has all four paths (phase
+    # 10's corpus grid as "experiments").  `plain_ms` is the plain
     # version over `plain_steps` steps (it is a Python loop over T: for K1
     # the first, for K2 the last `plain_steps` rows of the kernel's run over
     # all T, so `max_abs_err` is of the launch that `chunk` and `chunks`
@@ -2297,6 +2511,27 @@ def main() -> int:
               [numbers(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 bs={bs_m} "
                             f"f32", plain_steps=T_MIX_KERNEL, **fk.adf_launch_shape(S_mix))],
               plain_steps=T_KERNEL, **fk.adf_launch_shape(77)),
+    ]
+    ih_kern, ih_launches = ihgp_numbers["kernels"], ihgp_numbers["ihgp_launches"]
+    pick = ("ms", "plain_ms", "plain_steps", "max_abs_err", "bound", "threads", "cluster")
+
+    def ihgp_entry(name, shape, other=None):
+        replaces, source = KERNELS[name]
+        nums = ih_kern[name]
+        e = dict(name=name, route="cuda", source=f"nsgp_tpu_torch/csrc/{source}",
+                 replaces=replaces, launches=ih_launches["seq_16000"][name], library_ms=None,
+                 **numbers({k: v for k, v in nums.items() if k in pick}, shape),
+                 launches_by_path={path: c[name] for path, c in ih_launches.items()},
+                 checks={k: v for k, v in nums.items() if k not in pick and k != "mixture"})
+        if other:
+            e["other_shapes"] = other
+        return e
+
+    mix5 = ih_kern["fused_ihgp_adf"]["mixture"]
+    kernels += [
+        ihgp_entry("fused_ihgp_adf", f"T={T_MAIN} D={D} N={N} S=77 bs=4 G=200 f32",
+                   [numbers({k: v for k, v in mix5.items() if k != "shape"}, mix5["shape"])]),
+        ihgp_entry("fused_ihgp_smooth", f"T={T_MAIN} C={D + N} bs=4 G=200 f32"),
     ]
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)

@@ -1,6 +1,10 @@
-// The ADF forward sweep shared by K3 (fused_adf.cuh, one signal) and K4
-// (fused_adf_mb.cuh, BF files): one device function, adf_sweep, that both
-// kernels call.  K3 is the BF = 1 instantiation of the same code.
+// The ADF forward sweep shared by K3 (fused_adf.cuh, one signal), K4
+// (fused_adf_mb.cuh, BF files) and K5 (fused_ihgp_adf.cuh, IHGP's steady
+// sweep): one device function, adf_sweep, that all three kernels call.  It
+// does the moment match of a step (phases 2 and 3 below) and leaves what it
+// carries between steps to a recursion policy (phases 1 and 4): K3 and K4
+// carry the covariance filter (CovRecursion, here), K5 a steady-state table
+// lookup (SteadyRecursion).  K3 is the BF = 1 instantiation of K4's code.
 //
 // What bounds it.  The sweep is a T-long recursion; per observed step it
 // evaluates S sigma points (S * D * N multiply-adds, S * N link values, one
@@ -63,8 +67,8 @@
 //   CTA's shared memory alive until no other can read it.
 //
 // Kept: no --use_fast_math, a clamp_min that propagates NaN, the raw-scale Z
-// floor, masked steps that skip the cubature (zero sites, lZ = 0), padded
-// state dims inert.
+// floor, steps that are not matched skip the cubature (their lZ = 0; K3 and
+// K4 take zero sites there), padded state dims inert.
 //
 // With -DNSGP_CLOCK_PROBE thread 0 of CTA 0 adds up clock64() per phase and
 // writes the sums to `cyc` (tools/probe_adf_cycles.py); the shipped library
@@ -91,6 +95,7 @@ constexpr int ADF_MAX_CLUSTER = 8;           // the portable cluster size
 constexpr int ADF_POINTS_PER_CTA = 512;      // a CTA more for every so many points
 constexpr int ADF_MAX_PARTIALS = 8;          // max(ADF_NW, ADF_MAX_CLUSTER)
 constexpr size_t ADF_STAGE_LIMIT = 160 * 1024;  // stage xi, wn if the layout stays below
+constexpr double ADF_SQ_FLOOR = 1e-12;       // K3, K4: 'sq' takes sqrt(max(a, 1e-12))
 
 static_assert((ADF_PB_ONE & (ADF_PB_ONE - 1)) == 0 && (ADF_PB_CLUSTER & (ADF_PB_CLUSTER - 1)) == 0,
               "points a lane must be a power of two");
@@ -211,26 +216,170 @@ constexpr int ADF_PROBE_PHASES = 9;
 #define ADF_PROBE_MARK(i)
 #endif
 
-// The sweep over one file b = blockIdx.x / R by its cluster of R CTAs.
-// Layouts: y, obs, lZ (T, BF); tt, tn (T, BF, C); ms (T, BF, C, bs);
-// Ps (T, BF, C, bs, bs); A, Q, Pinf (BF, C, bs, bs); H (BF, C, bs);
-// W (BF, D, N); sn2 (BF,); xi (S, N), wn (S,) shared by the files.
-template <typename T, int BS, int PB>
-__device__ __forceinline__ void adf_sweep_pb(
-    const T* __restrict__ y, const T* __restrict__ obs, const T* __restrict__ A_,
-    const T* __restrict__ Q_, const T* __restrict__ Pinf_, const T* __restrict__ H_,
-    const T* __restrict__ W_, const T* __restrict__ xi, const T* __restrict__ wn,
-    const T* __restrict__ sn2_, T damp, T log_floor, int n_steps, int BF, int D, int N, int S,
-    int R, int link_exp_i, int sq_i, T* __restrict__ ms, T* __restrict__ Ps,
-    T* __restrict__ lZ, T* __restrict__ tt_out, T* __restrict__ tn_out,
-    long long* __restrict__ cyc) {
+// What the moment match of every ADF sweep reads: the observation stream and
+// the likelihood.  y, obs (T, BF): the samples, and the steps whose moments
+// are matched (obs > 0; uniform over a file's cluster); W (BF, D, N); sn2
+// (BF,); xi (S, N), wn (S,) unit sigma points shared by the files.  'sq'
+// amplitudes are sqrt(max(a, sq_floor)).  R, the CTAs a file, is set by
+// launch_adf_sweep from S.
+template <typename T>
+struct AdfCore {
+  const T* y;
+  const T* obs;
+  const T* W;
+  const T* xi;
+  const T* wn;
+  const T* sn2;
+  T damp, log_floor, sq_floor;
+  int n_steps, BF, D, N, S, R, link_exp, sq;
+  long long* cyc;
+};
+
+template <typename T>
+AdfCore<T> adf_core(const void* y, const void* obs, const void* W, const void* xi, const void* wn,
+                    const void* sn2, double damp, double log_floor, double sq_floor, int n_steps,
+                    int BF, int D, int N, int S, int link_exp, int sq, void* cyc) {
+  return AdfCore<T>{(const T*)y, (const T*)obs, (const T*)W, (const T*)xi, (const T*)wn,
+                    (const T*)sn2, (T)damp, (T)log_floor, (T)sq_floor, n_steps, BF, D, N, S,
+                    /*R=*/1, link_exp, sq, (long long*)cyc};
+}
+
+// The first half of phase 4, shared by the recursions: a channel's merged
+// totals at shift m_all (Z, and the first and second weighted moments) to lZ
+// and the first two derivatives of log Z at the cavity (fmu, var), with the
+// raw-scale Z floor.  A modulator's totals are of the unit point: sd / var and
+// 1 / var factor out here.
+template <typename T>
+__device__ __forceinline__ void adf_derivatives(T (&tot)[3], T m_all, bool modulator, T var, T sd,
+                                                T log_floor, T& lZk, T& dl, T& d2) {
+  if (!Num<T>::finite(m_all)) m_all = T(0);
+  if (modulator) {
+    // G1 = sum w dmu, G2 = sum w (dmu^2 - 1 / s2_g) with dmu = rg * x
+    const T is2 = T(1) / var, rg = sd * is2;
+    tot[1] *= rg;
+    tot[2] = tot[2] * (rg * rg) - is2 * tot[0];
+  }
+  const T Z0 = clamp_min(tot[0], Num<T>::tiny());
+  const T lZ_raw = m_all + Num<T>::log_(Z0);
+  lZk = clamp_min(lZ_raw, log_floor);  // floor on the raw sum, not the shifted
+  const T Zi = Num<T>::exp_(lZ_raw - lZk) / Z0;
+  dl = Zi * tot[1];
+  d2 = Zi * tot[2] - dl * dl;
+}
+
+// ---------------------------------------------------------------------------
+// The recursion a sweep carries between its moment matches (phases 1 and 4).
+// A recursion is a struct of one channel's state with three members:
+//
+//   Rec(args, core, b, c, chan, extra)   every thread: stage what the CTA
+//       shares into `extra` (shared memory after the sweep's layout); the
+//       channel threads (chan) load channel c of file b
+//   marginal(t, fmu, var)                channel threads, phase 1: the
+//       predicted observable marginal of step t
+//   advance(t, matched, lZk, dl, d2, fmu, var, store)   channel threads,
+//       phase 4: the site from the derivatives (zero where not matched) and
+//       the state update; `store` on cluster rank 0 writes the outputs
+//
+// CovRecursion is K3's and K4's (the covariance filter); K5's steady-table
+// recursion is in fused_ihgp_adf.cuh.
+// ---------------------------------------------------------------------------
+
+// K3, K4: ms (T, BF, C, bs), Ps (T, BF, C, bs, bs), lZ (T, BF), tt, tn
+// (T, BF, C); A, Q, Pinf (BF, C, bs, bs), H (BF, C, bs).
+template <typename T>
+struct CovArgs {
+  const T* A;
+  const T* Q;
+  const T* Pinf;
+  const T* H;
+  T* ms;
+  T* Ps;
+  T* lZ;
+  T* tt;
+  T* tn;
+};
+
+template <typename T>
+CovArgs<T> cov_args(const void* A, const void* Q, const void* Pinf, const void* H, void* ms,
+                    void* Ps, void* lZ, void* tt, void* tn) {
+  return CovArgs<T>{(const T*)A, (const T*)Q, (const T*)Pinf, (const T*)H, (T*)ms, (T*)Ps,
+                    (T*)lZ, (T*)tt, (T*)tn};
+}
+
+// EP sweep 1 from zero sites: predict (A m, A P A' + Q), the damped site from
+// zero incoming sites, the rank-one update.
+template <typename T, int BS>
+struct CovRecursion {
+  using Args = CovArgs<T>;
+  Args a;
+  T A[BS][BS], Q[BS][BS], P[BS][BS], H[BS], m[BS];
+  T mp[BS], Pp[BS][BS], PH[BS];  // this step's prediction
+  T damp;
+  int b, c, C, BF;
+
+  __device__ __forceinline__ CovRecursion(const Args& args, const AdfCore<T>& core, int b_, int c_,
+                                          bool chan, T*)
+      : a(args), damp(core.damp), b(b_), c(c_), C(core.D + core.N), BF(core.BF) {
+    if (chan) {
+      const size_t ch = (size_t)b * C + c;
+      load_mat<T, BS>(A, a.A + ch * BS * BS);
+      load_mat<T, BS>(Q, a.Q + ch * BS * BS);
+      load_mat<T, BS>(P, a.Pinf + ch * BS * BS);
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+        H[i] = a.H[ch * BS + i];
+        m[i] = T(0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void marginal(int, T& fmu, T& var) {
+    T AP[BS][BS];
+    predict<T, BS>(A, Q, m, P, mp, AP, Pp);
+    observe<T, BS>(H, mp, Pp, fmu, PH, var);
+  }
+
+  __device__ __forceinline__ void advance(int t, bool matched, T lZk, T dl, T d2, T fmu, T var,
+                                          bool store) {
+    T tt = T(0), tn = T(0);  // not matched (unobserved): zero sites, lZ = 0
+    if (matched) {
+      const T denom = T(1) + d2 * var;
+      // incoming sites are zero: (1 - damp) * 0 + damp * (...)
+      tt = clamp_min(damp * (-d2 / denom), T(0));
+      tn = damp * ((dl - fmu * d2) / denom);
+    }
+    site_update<T, BS>(tt, tn, fmu, var, PH, mp, Pp, m, P);
+    if (store) {
+      const size_t row = ((size_t)t * BF + b) * C + c;
+      a.tt[row] = tt;
+      a.tn[row] = tn;
+      if (c == 0) a.lZ[(size_t)t * BF + b] = lZk;
+#pragma unroll
+      for (int i = 0; i < BS; ++i) a.ms[row * BS + i] = m[i];
+      store_mat<T, BS>(a.Ps + row * BS * BS, P);
+    }
+  }
+};
+
+// The sweep over one file b = blockIdx.x / R by its cluster of R CTAs, the
+// recursion Rec carried between the moment matches.  R is a parameter of its
+// own so that the one-CTA instantiation folds it to 1.
+template <typename T, int BS, int PB, typename Rec>
+__device__ __forceinline__ void adf_sweep_pb(const AdfCore<T>& core, const typename Rec::Args& ra,
+                                             const int R) {
   constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
+  const T* __restrict__ y = core.y;
+  const T* __restrict__ obs = core.obs;
+  const T* __restrict__ xi = core.xi;
+  const T* __restrict__ wn = core.wn;
+  const int n_steps = core.n_steps, BF = core.BF, D = core.D, N = core.N, S = core.S;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = R > 1 ? (int)cluster.block_rank() : 0;
   const int b = blockIdx.x / R;  // the file
   const int C = D + N;
-  const bool link_exp = link_exp_i != 0, sq = sq_i != 0;
+  const bool link_exp = core.link_exp != 0, sq = core.sq != 0;
+  const T sq_floor = core.sq_floor;
   const AdfLayout L = adf_layout(D, N, S, R, sizeof(T));
   const int G = L.G, PT = L.PT, Dp = L.Dp;
   const int g_lane = lane & (G - 1), grp = lane >> L.lg;
@@ -252,7 +401,7 @@ __device__ __forceinline__ void adf_sweep_pb(
   // ---- once per launch: padding, W, the CTA's own sigma points ------------
   const int round_pts = L.GC * PB;  // points a CTA takes per round
   for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
-  const T* W = W_ + (size_t)b * D * N;
+  const T* W = core.W + (size_t)b * D * N;
   for (int i = tid; i < N * Dp; i += NT) {
     const int n = i / Dp, d = i - n * Dp;
     Wt[i] = d < D ? W[d * N + n] : T(0);
@@ -261,28 +410,17 @@ __device__ __forceinline__ void adf_sweep_pb(
     T* xs = sh + L.xi;
     T* ws = sh + L.wn;
     for (int loc = tid; loc < L.nloc; loc += NT) {
-      const int k = loc / round_pts;
-      const int s = (k * R + rank) * round_pts + (loc - k * round_pts);
+      const int kr = loc / round_pts;
+      const int s = (kr * R + rank) * round_pts + (loc - kr * round_pts);
       ws[loc] = s < S ? wn[s] : T(0);
       for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
     }
   }
-  const T sn2 = sn2_[b];
+  const T sn2 = core.sn2[b];
 
-  // Channel state (threads tid < C only); ch = this file's channel.
+  // Channel state (threads tid < C only; channel tid of file b).
   const bool chan = tid < C;
-  const size_t ch = (size_t)b * C + tid;
-  T A[BS][BS], Q[BS][BS], P[BS][BS], H[BS], m[BS];
-  if (chan) {
-    load_mat<T, BS>(A, A_ + ch * BS * BS);
-    load_mat<T, BS>(Q, Q_ + ch * BS * BS);
-    load_mat<T, BS>(P, Pinf_ + ch * BS * BS);
-#pragma unroll
-    for (int i = 0; i < BS; ++i) {
-      H[i] = H_[ch * BS + i];
-      m[i] = T(0);
-    }
-  }
+  Rec rec(ra, core, b, tid, chan, sh + L.total);
   // Where this channel's two totals sit in a record (Z is at 0).
   const int own = tid < D ? tid : tid - D;
   const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
@@ -293,7 +431,7 @@ __device__ __forceinline__ void adf_sweep_pb(
   __syncthreads();
 
 #ifdef NSGP_CLOCK_PROBE
-  const bool probing = tid == 0 && blockIdx.x == 0 && cyc != nullptr;
+  const bool probing = tid == 0 && blockIdx.x == 0 && core.cyc != nullptr;
   long long cycv[ADF_PROBE_PHASES] = {};
   long long c_last = clock64();
 #endif
@@ -306,19 +444,17 @@ __device__ __forceinline__ void adf_sweep_pb(
       obs_next = obs[(size_t)(t + 1) * BF + b];
     }
 
-    // ---- 1. predict and publish the observable marginals ----------------
-    T mp[BS], Pp[BS][BS], PH[BS], fmu = T(0), HPH = T(0);
+    // ---- 1. the predicted marginals, published where the step is matched --
+    T fmu = T(0), var = T(0);
     T sd = T(0);  // a modulator's sqrt(max(s2_g, 0))
     if (chan) {
-      T AP[BS][BS];
-      predict<T, BS>(A, Q, m, P, mp, AP, Pp);
-      observe<T, BS>(H, mp, Pp, fmu, PH, HPH);
+      rec.marginal(t, fmu, var);
       if (observed) {
         if (tid < D) {
           fmu_z[tid] = fmu;
-          hph_z[tid] = HPH;
+          hph_z[tid] = var;
         } else {
-          sd = Num<T>::sqrt_(clamp_min(HPH, T(0)));
+          sd = Num<T>::sqrt_(clamp_min(var, T(0)));
           mu_g[own] = fmu;
           sd_g[own] = sd;
         }
@@ -384,7 +520,7 @@ __device__ __forceinline__ void adf_sweep_pb(
           for (int p = 0; p < PB; ++p)
 #pragma unroll
             for (int j = 0; j < DB; ++j)
-              a[p][j] = Num<T>::sqrt_pos(clamp_min(a[p][j], T(1e-12)));
+              a[p][j] = Num<T>::sqrt_pos(clamp_min(a[p][j], sq_floor));
         }
         T se[PB], mean[PB];
 #pragma unroll
@@ -543,38 +679,11 @@ __device__ __forceinline__ void adf_sweep_pb(
       ++n_seen;
     }
 
-    // ---- 4. derivatives, damped site, measurement update -----------------
+    // ---- 4. derivatives, then the recursion's site and update -------------
     if (chan) {
-      T tt = T(0), tn = T(0), lZk = T(0);  // unobserved: zero sites, lZ = 0
-      if (observed) {
-        if (!Num<T>::finite(m_all)) m_all = T(0);
-        if (tid >= D) {
-          // G1 = sum w dmu, G2 = sum w (dmu^2 - 1 / s2_g) with dmu = rg * x
-          const T is2 = T(1) / HPH, rg = sd * is2;
-          tot[1] *= rg;
-          tot[2] = tot[2] * (rg * rg) - is2 * tot[0];
-        }
-        const T Z0 = clamp_min(tot[0], Num<T>::tiny());
-        const T lZ_raw = m_all + Num<T>::log_(Z0);
-        lZk = clamp_min(lZ_raw, log_floor);  // floor on the raw sum, not the shifted
-        const T Zi = Num<T>::exp_(lZ_raw - lZk) / Z0;
-        const T dl = Zi * tot[1];
-        const T d2 = Zi * tot[2] - dl * dl;
-        const T denom = T(1) + d2 * HPH;
-        // incoming sites are zero: (1 - damp) * 0 + damp * (...)
-        tt = clamp_min(damp * (-d2 / denom), T(0));
-        tn = damp * ((dl - fmu * d2) / denom);
-      }
-      site_update<T, BS>(tt, tn, fmu, HPH, PH, mp, Pp, m, P);
-      if (rank == 0) {
-        const size_t row = ((size_t)t * BF + b) * C + tid;
-        tt_out[row] = tt;
-        tn_out[row] = tn;
-        if (tid == 0) lZ[(size_t)t * BF + b] = lZk;
-#pragma unroll
-        for (int i = 0; i < BS; ++i) ms[row * BS + i] = m[i];
-        store_mat<T, BS>(Ps + row * BS * BS, P);
-      }
+      T lZk = T(0), dl = T(0), d2 = T(0);
+      if (observed) adf_derivatives<T>(tot, m_all, tid >= D, var, sd, core.log_floor, lZk, dl, d2);
+      rec.advance(t, observed, lZk, dl, d2, fmu, var, rank == 0);
     }
     ADF_PROBE_MARK(8);
   }
@@ -582,45 +691,45 @@ __device__ __forceinline__ void adf_sweep_pb(
   if (R > 1) cluster.sync();
 #ifdef NSGP_CLOCK_PROBE
   if (probing) {
-    for (int i = 0; i < ADF_PROBE_PHASES; ++i) cyc[i] = cycv[i];
-    cyc[ADF_PROBE_PHASES] = n_seen;
+    for (int i = 0; i < ADF_PROBE_PHASES; ++i) core.cyc[i] = cycv[i];
+    core.cyc[ADF_PROBE_PHASES] = n_seen;
   }
 #endif
 }
 
-template <typename T, int BS>
-__device__ __forceinline__ void adf_sweep(
-    const T* __restrict__ y, const T* __restrict__ obs, const T* __restrict__ A,
-    const T* __restrict__ Q, const T* __restrict__ Pinf, const T* __restrict__ H,
-    const T* __restrict__ W, const T* __restrict__ xi, const T* __restrict__ wn,
-    const T* __restrict__ sn2, T damp, T log_floor, int n_steps, int BF, int D, int N, int S,
-    int R, int link_exp, int sq, T* __restrict__ ms, T* __restrict__ Ps, T* __restrict__ lZ,
-    T* __restrict__ tt, T* __restrict__ tn, long long* __restrict__ cyc) {
-  if (R > 1)
-    adf_sweep_pb<T, BS, ADF_PB_CLUSTER>(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor,
-                                        n_steps, BF, D, N, S, R, link_exp, sq, ms, Ps, lZ, tt,
-                                        tn, cyc);
+template <typename T, int BS, typename Rec>
+__device__ __forceinline__ void adf_sweep(const AdfCore<T>& core, const typename Rec::Args& ra) {
+  if (core.R > 1)
+    adf_sweep_pb<T, BS, ADF_PB_CLUSTER, Rec>(core, ra, core.R);
   else
-    adf_sweep_pb<T, BS, ADF_PB_ONE>(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor,
-                                    n_steps, BF, D, N, S, 1, link_exp, sq, ms, Ps, lZ, tt, tn,
-                                    cyc);
+    adf_sweep_pb<T, BS, ADF_PB_ONE, Rec>(core, ra, 1);
 }
 
-// Launch `kern` (K3 or K4) over BF files: BF clusters of R CTAs.  Returns 0,
-// a CUDA error, -2 for a width the mapping cannot take, -3 for a cluster that
-// cannot be resident.  Within the accepted widths the shared layout stays
-// under the block's 227 KB (the staged sigma points are dropped first).
-template <typename T, typename Kern>
-int launch_adf_sweep(Kern kern, const void* y, const void* obs, const void* A, const void* Q,
-                     const void* Pinf, const void* H, const void* W, const void* xi,
-                     const void* wn, const void* sn2, double damp, double log_floor,
-                     int n_steps, int BF, int D, int N, int S, int link_exp, int sq, void* ms,
-                     void* Ps, void* lZ, void* tt, void* tn, void* cyc, cudaStream_t st) {
+// Dynamic shared memory of the sweep's own layout for S sigma points.
+template <typename T>
+size_t adf_smem_bytes(int D, int N, int S) {
+  return (size_t)adf_layout(D, N, S, adf_cluster_size(S), sizeof(T)).total * sizeof(T);
+}
+
+// The most dynamic shared memory a block may take (Hopper: 227 KB).
+constexpr size_t ADF_SMEM_MAX = 232448;
+
+// Launch `kern` (K3, K4 or K5) over core.BF files: BF clusters of R CTAs,
+// with `extra` bytes of shared memory for the recursion after the sweep's
+// layout.  Returns 0, a CUDA error, -2 for a width the mapping cannot take,
+// -3 for a cluster that cannot be resident.  Within the accepted widths the
+// sweep's layout stays under the block's 227 KB (the staged sigma points are
+// dropped first); a recursion asks for `extra` only where it fits.
+template <typename T, typename Args>
+int launch_adf_sweep(void (*kern)(AdfCore<T>, Args), AdfCore<T> core, Args args, size_t extra,
+                     cudaStream_t st) {
+  const int D = core.D, N = core.N, S = core.S, BF = core.BF;
   if (D < 1 || N < 1 || S < 1 || BF < 1 || D > ADF_MAX_WIDTH || N > ADF_MAX_WIDTH ||
       D + N > ADF_THREADS)
     return -2;
   const int R = adf_cluster_size(S);
-  const size_t bytes = (size_t)adf_layout(D, N, S, R, sizeof(T)).total * sizeof(T);
+  core.R = R;
+  const size_t bytes = adf_smem_bytes<T>(D, N, S) + extra;
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -644,11 +753,7 @@ int launch_adf_sweep(Kern kern, const void* y, const void* obs, const void* A, c
     if (e != cudaSuccess) return (int)e;
     if (resident < 1) return -3;
   }
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, (const T*)y, (const T*)obs, (const T*)A, (const T*)Q, (const T*)Pinf,
-      (const T*)H, (const T*)W, (const T*)xi, (const T*)wn, (const T*)sn2, (T)damp,
-      (T)log_floor, n_steps, BF, D, N, S, R, link_exp, sq, (T*)ms, (T*)Ps, (T*)lZ, (T*)tt,
-      (T*)tn, (long long*)cyc);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, core, args);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

@@ -28,16 +28,8 @@ namespace {
 
 template <typename T, int BS>
 __global__ void __launch_bounds__(ADF_THREADS, 1)
-fused_adf_kernel(const T* __restrict__ y, const T* __restrict__ obs,
-                 const T* __restrict__ A, const T* __restrict__ Q,
-                 const T* __restrict__ Pinf, const T* __restrict__ H,
-                 const T* __restrict__ W, const T* __restrict__ xi,
-                 const T* __restrict__ wn, const T* __restrict__ sn2, T damp, T log_floor,
-                 int n_steps, int BF, int D, int N, int S, int R, int link_exp, int sq,
-                 T* __restrict__ ms, T* __restrict__ Ps, T* __restrict__ lZ,
-                 T* __restrict__ tt, T* __restrict__ tn, long long* __restrict__ cyc) {
-  adf_sweep<T, BS>(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp, log_floor, n_steps, BF, D, N,
-                   S, R, link_exp, sq, ms, Ps, lZ, tt, tn, cyc);
+fused_adf_kernel(AdfCore<T> core, CovArgs<T> cov) {
+  adf_sweep<T, BS, CovRecursion<T, BS>>(core, cov);
 }
 
 template <typename T, int BS>
@@ -46,9 +38,11 @@ int launch_adf(const void* y, const void* obs, const void* A, const void* Q,
                const void* wn, const void* sn2, double damp, double log_floor, int n_steps,
                int D, int N, int S, int link_exp, int sq, void* ms, void* Ps, void* lZ,
                void* tt, void* tn, cudaStream_t st) {
-  return launch_adf_sweep<T>(fused_adf_kernel<T, BS>, y, obs, A, Q, Pinf, H, W, xi, wn, sn2,
-                             damp, log_floor, n_steps, /*BF=*/1, D, N, S, link_exp, sq, ms, Ps,
-                             lZ, tt, tn, nullptr, st);
+  return launch_adf_sweep<T>(
+      fused_adf_kernel<T, BS>,
+      adf_core<T>(y, obs, W, xi, wn, sn2, damp, log_floor, ADF_SQ_FLOOR, n_steps, /*BF=*/1, D, N,
+                  S, link_exp, sq, nullptr),
+      cov_args<T>(A, Q, Pinf, H, ms, Ps, lZ, tt, tn), 0, st);
 }
 
 }  // namespace

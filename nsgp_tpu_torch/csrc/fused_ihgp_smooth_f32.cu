@@ -1,0 +1,5 @@
+// K6 (fused_ihgp_smooth.cuh) in float32.
+
+#include "fused_ihgp_smooth.cuh"
+
+NSGP_DEFINE_FUSED_IHGP_SMOOTH(f32, float)

@@ -8,10 +8,13 @@ steady-state quantities by the effective noise R = 1/ttau, giving O(T C bs^2)
 filtering with no covariance propagated:
 
 - sweep 1 (ADF) is the sequential steady filter with interleaved moment
-  matching (``_steady_filter_seq``), a Python loop over T;
+  matching (``_steady_filter_seq``): on the card one launch of K5
+  (``ops.fused_ihgp.fused_ihgp_adf``, K3's moment match under a table
+  lookup), on the CPU its plain twin, a loop over T;
 - sweeps >= 2 run with fixed sites.  ``parallel=False`` repeats the
   sequential filter (re-matching only the last site, as the reference) and
-  the sequential steady smoother; ``parallel=True`` runs the affine
+  the sequential steady smoother (K6, ``fused_ihgp_smooth``, on the card);
+  ``parallel=True`` runs the affine
   recursions m_k = M_k m_{k-1} + c_k and ms_k = G_k ms_{k+1} + c_k as blocked
   two-level scans (``chunk > 0``) or one-level log-depth scans
   (``chunk = 0``, ``ops.pscan.associative_scan``);
@@ -24,12 +27,11 @@ Pf = PP - K ro K' (``pf_correct=0.0``); ``keep_best`` picks a sweep's
 posterior by EP energy; the sequential form re-matches the last site forward
 and never re-sites it backward.
 
-The per-step branch of the JAX scan (``lax.cond`` on observed & matched) is a
-Python ``if`` on masks taken to the host once a call, so nothing syncs per
-step.  ``ihgp_energy`` builds only the forward tables: its autograd graph
-never reaches the smoother tables' ``eigh``, whose backward is NaN at the
-repeated zero eigenvalues of padded dims.  Entry points follow
-``utils.device``: the card unless ``device="cpu"``.
+``ihgp_energy`` runs the plain twin of K5 on every device: its autograd
+graph runs through the sweep and K5 has no adjoint.  It builds only the
+forward tables: its graph never reaches the smoother tables' ``eigh``, whose
+backward is NaN at the repeated zero eigenvalues of padded dims.  Entry
+points follow ``utils.device``: the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import dare as dare_mod
+from nsgp_tpu_torch.ops import fused_ihgp as fih
+from nsgp_tpu_torch.ops.fused_ihgp import lookup_idx as _lookup_idx
 from nsgp_tpu_torch.ops.kalman import Sites
-from nsgp_tpu_torch.ops.moments import moments, moments_chunked
+from nsgp_tpu_torch.ops.moments import moments_chunked
 from nsgp_tpu_torch.ops.pscan import associative_scan
 from nsgp_tpu_torch.ops.ssm import BlockSSM
 from nsgp_tpu_torch.utils.device import place_inputs
@@ -219,109 +223,27 @@ def build_tables(ssm: BlockSSM, cfg: IHGPConfig, smoother: bool = True) -> IHGPT
     return IHGPTables(log_r=log_r, Ph=Ph, Gn=Gn, hPph=hPph, hPSh=hPSh)
 
 
-class _Lookup(NamedTuple):
-    """The grid constants of ``_lookup_idx``, in the tables' dtype."""
-
-    lo: torch.Tensor
-    hi: torch.Tensor
-    span: torch.Tensor  # hi - lo
-    shift: torch.Tensor
-    G: int
+def _lookup_consts(tables: IHGPTables) -> fih.Lookup:
+    """The grid constants of ``_lookup_idx`` (``ops.fused_ihgp``), in the
+    tables' dtype."""
+    return fih.lookup_consts(tables.log_r)
 
 
-def _lookup_consts(tables: IHGPTables) -> _Lookup:
-    G = tables.log_r.shape[0]
-    lo, hi = tables.log_r[0], tables.log_r[-1]
-    step = (hi - lo) / (G - 1)
-    rho = 10.0**step
-    shift = torch.log10((1.0 + rho) / 2.0) / step
-    return _Lookup(lo, hi, hi - lo, shift, G)
-
-
-def _lookup_idx(lk: _Lookup, ttau: torch.Tensor) -> torch.Tensor:
-    """Grid index for effective noise R = 1/ttau.
-
-    ttau <= 0 maps to the top of the grid (R -> inf: pure prediction), the
-    reference's R=inf branch (:285-289).  The nearest neighbour in LINEAR r,
-    as the reference's min(abs(r - R)) (:237): on the log-uniform grid the
-    linear midpoint sits at a constant fractional index ``shift`` above i.
-    The 1e-300 floor is 0 in float32, as in JAX.
-    """
-    logR = -torch.log10(torch.clamp_min(ttau, 1e-300))
-    logR = torch.where(ttau > 0.0, logR, lk.hi)
-    x = (logR - lk.lo) / lk.span * (lk.G - 1)
-    # int64 for indexing: JAX's int32 holds the same values, |x| < 2**20
-    return torch.clamp(torch.floor(x - lk.shift).long() + 1, 0, lk.G - 1)
-
-
-def _steady_filter_seq(ssm: BlockSSM, tables: IHGPTables, y, mask, sites: Sites, mom_fn,
-                       damp: float, match_mask):
-    """Sequential steady filter with interleaved ADF matching.
-
-    Ref ihgp_ep_modulator_nmf.m:233-310.  The moment match uses the steady
-    predictive marginal h'Ph looked up at the previous step's site (the
-    reference's R(n, k-1) convention); the first step uses Pinf.
-    ``match_mask`` (T,) bool is all-True on the ADF sweep and last-step-only
-    on later sweeps (:251).  Returns (ms (T, C*bs), idx (T, C), lZ (T,),
-    sites).
-
-    The sites of the steps that are not re-matched are known before the
-    loop, so their lookups and table rows are taken for all T at once
-    (elementwise: the values of one step at a time); the loop does the
-    lookups of the re-matched steps.  Ph and h'Ph are gathered as one row.
-    """
-    A, H = ssm.A, ssm.H
-    C, bs = H.shape
-    car = torch.arange(C, device=A.device)
-    lk = _lookup_consts(tables)
+def _steady_filter_seq(ssm: BlockSSM, tables: IHGPTables, y, mask, sites: Sites, mp, W, sn2,
+                       damp: float, match_mask, sweep=fih.fused_ihgp_adf):
+    """Sequential steady filter with interleaved ADF matching (ref
+    ihgp_ep_modulator_nmf.m:233-310), through ``sweep``: K5's wrapper (the
+    kernel on the card, its plain twin on the CPU) or, where autograd must
+    run through it, the plain twin itself.  ``match_mask`` (T,) bool is
+    all-True on the ADF sweep and last-step-only on later sweeps (:251).
+    Returns (ms (T, C*bs), idx (T, C), lZ (T,), sites)."""
+    H = ssm.H
     tab = torch.cat([tables.Ph, tables.hPph[..., None]], dim=-1)  # (C, G, bs+1)
     first = torch.cat([(ssm.Pinf @ H[..., None])[..., 0],
                        torch.einsum("ci,cij,cj->c", H, ssm.Pinf, H)[:, None]], dim=-1)
-    HA = (H[:, None, :] @ A)[:, 0]  # (C, bs): fmu = h' A m
-    obs = mask.tolist()
-    do = (mask & match_mask).tolist()
-    zero = torch.zeros((), dtype=A.dtype, device=A.device)
-    ys, ttaus, tnus = y.unbind(0), sites.ttau.unbind(0), sites.tnu.unbind(0)
-    if not all(do):
-        # the fixed sites: tt = ttau; idx of the step from tt_eff, and the
-        # next step's row from tt itself (the same index where observed)
-        idx_fix = _lookup_idx(lk, torch.where(mask[:, None], sites.ttau,
-                                              torch.zeros_like(sites.ttau)))
-        idx_next = torch.where(mask[:, None], idx_fix, _lookup_idx(lk, sites.ttau))
-        idx_fix, rows_next = idx_fix.unbind(0), tab[car, idx_next].unbind(0)
-
-    m = torch.zeros_like(H)
-    row = first
-    ms, idxs, lZs, tts, tns = [], [], [], [], []
-    for k in range(len(obs)):
-        Ph_prev, varp = row[:, :bs], row[:, bs]
-        fmu = (HA * m).sum(-1)
-        if do[k]:
-            lZk, dlZ, d2lZ = mom_fn(ys[k], fmu, varp, 1.0)
-            denom = 1.0 + d2lZ * varp
-            tt = (1.0 - damp) * ttaus[k] + damp * (-d2lZ / denom)
-            tn = (1.0 - damp) * tnus[k] + damp * ((dlZ - fmu * d2lZ) / denom)
-            tt = torch.clamp_min(tt, 0.0)
-            idx = _lookup_idx(lk, tt)  # observed: tt_eff is tt
-            tt_eff = tt
-            row = tab[car, idx]
-        else:
-            lZk, tt, tn, idx = zero, ttaus[k], tnus[k], idx_fix[k]
-            tt_eff = tt if obs[k] else torch.zeros_like(tt)
-            row = rows_next[k]
-        # REFERENCE GAIN CONVENTION: K = PP(R_{k-1}) h / (h'PP(R_{k-1})h + R_k)
-        # (:296); in z-form m <- A m + Ph_prev (tnu - ttau fmu) / (ttau hPh_prev + 1),
-        # with the hard pure-prediction branch at ttau == 0.
-        z = tt_eff * varp + 1.0
-        gain = torch.where(tt_eff > 0.0, (tn - tt_eff * fmu) / z, zero)
-        m = (A @ m[..., None])[..., 0] + Ph_prev * gain[:, None]
-        ms.append(m.reshape(-1))
-        idxs.append(idx)
-        lZs.append(lZk)
-        tts.append(tt)
-        tns.append(tn)
-    return (torch.stack(ms), torch.stack(idxs), torch.stack(lZs),
-            Sites(torch.stack(tts), torch.stack(tns)))
+    ms, idx, lZ, tt, tn = sweep(y, mask, match_mask, sites.ttau, sites.tnu, ssm.A, H, first, tab,
+                                _lookup_consts(tables), W, sn2, mp=mp, damp=damp)
+    return ms, idx, lZ, Sites(tt, tn)
 
 
 def _filter_combine(a, b):
@@ -401,16 +323,6 @@ def _steady_filter_blocked(ssm: BlockSSM, tables: IHGPTables, mask, sites: Sites
     return torch.stack(ms, dim=1).reshape(nc * L, -1)[:T], idx
 
 
-def _smoother_elems(ssm: BlockSSM, tables: IHGPTables, ms, idx):
-    """(G_k, c_k = mf_k - G_k A mf_k) of every step, and mf (T, C, bs)."""
-    C, bs = ssm.H.shape
-    car = torch.arange(C, device=ms.device)
-    mf = ms.reshape(-1, C, bs)
-    G = tables.Gn[car, idx]  # (T, C, bs, bs)
-    c = mf - (G @ (ssm.A @ mf[..., None]))[..., 0]
-    return G, c, mf
-
-
 def _steady_smoother_blocked(ssm: BlockSSM, tables: IHGPTables, ms, idx, chunk: int):
     """Blocked two-level steady smoother: ms_k = G_k ms_{k+1} + c_k.
 
@@ -426,7 +338,7 @@ def _steady_smoother_blocked(ssm: BlockSSM, tables: IHGPTables, ms, idx, chunk: 
         ms = torch.cat([ms.new_zeros((pad, ms.shape[1])), ms], dim=0)
         idx = torch.cat([idx[:1].expand(pad, C), idx], dim=0)
     nc = ms.shape[0] // L
-    G, c, mf = _smoother_elems(ssm, tables, ms, idx)
+    G, c, mf = fih.smoother_elems(ssm.A, tables.Gn, ms, idx)
     G = torch.cat([G[:-1], torch.zeros_like(G[-1:])], dim=0)
     c = torch.cat([c[:-1], mf[-1:]], dim=0)
     G = G.reshape(nc, L, C, bs, bs).transpose(0, 1).unbind(0)
@@ -475,21 +387,16 @@ def _steady_filter_parallel(ssm: BlockSSM, tables: IHGPTables, mask, sites: Site
 def _steady_smoother(ssm: BlockSSM, tables: IHGPTables, ms, idx, parallel: bool):
     """Steady RTS smoother on filtered means (T, C*bs): ms_k = G_k ms_{k+1}
     + c_k (ref :373-442, means only; variances come from the PS table).
-    ``parallel`` is the one-level log-depth scan, else a loop over T."""
+    ``parallel`` is the one-level log-depth scan, else the sequential pass
+    (K6's wrapper: the kernel on the card, its plain twin on the CPU)."""
+    if not parallel:
+        return fih.fused_ihgp_smooth(ms, idx, ssm.A, tables.Gn)
     T = ms.shape[0]
-    G, c, mf = _smoother_elems(ssm, tables, ms, idx)
-    if parallel:
-        Gp = torch.cat([G[:-1], torch.zeros_like(G[:1])], dim=0)
-        cp = torch.cat([c[:-1], mf[-1:]], dim=0)
-        _, sm = associative_scan(_smoother_combine, (Gp, cp), reverse=True)
-        return sm.reshape(T, -1)
-    Gs, cs = G.unbind(0), c.unbind(0)
-    m = mf[-1]
-    out = [ms[-1]]
-    for k in range(T - 2, -1, -1):
-        m = (Gs[k] @ m[..., None])[..., 0] + cs[k]
-        out.append(m.reshape(-1))
-    return torch.stack(out[::-1])
+    G, c, mf = fih.smoother_elems(ssm.A, tables.Gn, ms, idx)
+    Gp = torch.cat([G[:-1], torch.zeros_like(G[:1])], dim=0)
+    cp = torch.cat([c[:-1], mf[-1:]], dim=0)
+    _, sm = associative_scan(_smoother_combine, (Gp, cp), reverse=True)
+    return sm.reshape(T, -1)
 
 
 def _resite(mp, params: GTNMFParams, cfg: IHGPConfig, y, mask, mu, var, sites: Sites, damp,
@@ -514,15 +421,6 @@ def _resite(mp, params: GTNMFParams, cfg: IHGPConfig, y, mask, mu, var, sites: S
     ttau = torch.clamp_min(torch.where(ok, tt_p, sites.ttau), 0.0)
     tnu = torch.where(ok, tn_p, sites.tnu)
     return Sites(ttau, tnu), lZ
-
-
-def _mom_point(model: GTNMFModel, params: GTNMFParams):
-    mp = model.moment_params()
-
-    def mom_fn(y_k, fmu, fs2, frac):
-        return moments(mp, params.lik, y_k, fmu, fs2, params.W, frac)
-
-    return mom_fn
 
 
 def ihgp_infer(
@@ -550,7 +448,6 @@ def ihgp_infer(
         # stability floor of the corrected tables (see the JAX module)
         tables = tables._replace(hPSh=torch.clamp_min(tables.hPSh, params.lik.to(dt_)))
     mp = model.moment_params()
-    mom_fn = _mom_point(model, params)
 
     sites = Sites(torch.zeros((T, C), dtype=dt_, device=dev),
                   torch.zeros((T, C), dtype=dt_, device=dev))
@@ -569,8 +466,8 @@ def ihgp_infer(
     for itt in range(config.ep_itts):
         damp = config.damp(itt)
         if itt == 0:
-            ms, idx, lZ, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mom_fn, damp,
-                                                    all_steps)
+            ms, idx, lZ, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp, params.W,
+                                                    params.lik, damp, all_steps)
             nlZ[0] = -torch.sum(lZ)
             lZ_final = lZ
             lZ_last = lZ[-1]
@@ -581,8 +478,8 @@ def ihgp_infer(
                 ms, idx = _steady_filter_parallel(ssm, tables, mask, sites)
         else:
             # later forward passes still re-match the last site (ref :251)
-            ms, idx, lZ_fwd, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mom_fn,
-                                                        damp, last_only)
+            ms, idx, lZ_fwd, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp,
+                                                        params.W, params.lik, damp, last_only)
             lZ_last = lZ_fwd[-1]
         if config.parallel and config.chunk:
             sm = _steady_smoother_blocked(ssm, tables, ms, idx, config.chunk)
@@ -634,7 +531,9 @@ def ihgp_energy(
     """ADF single-sweep negative log marginal likelihood (ref
     ihgp_ep_modulator_nmf.m:533-624: energy mode is one ADF sweep).  A 0-d
     tensor differentiable by autograd with respect to every ``GTNMFParams``
-    leaf, through the DARE doubling iterations."""
+    leaf, through the DARE doubling iterations.  The sweep is K5's plain
+    twin on every device, the card included: autograd runs through it, and
+    K5 has no adjoint."""
     full_fp32()
     dev, params, y, mask = place_inputs(params, y, mask, device)
     T = y.shape[0]
@@ -642,6 +541,7 @@ def ihgp_energy(
     tables = build_tables(ssm, config, smoother=False)
     zeros = torch.zeros((T, ssm.num_channels), dtype=ssm.A.dtype, device=dev)
     _, _, lZ, _ = _steady_filter_seq(ssm, tables, y, mask, Sites(zeros, zeros),
-                                     _mom_point(model, params), config.damp(0),
-                                     torch.ones((T,), dtype=torch.bool, device=dev))
+                                     model.moment_params(), params.W, params.lik, config.damp(0),
+                                     torch.ones((T,), dtype=torch.bool, device=dev),
+                                     sweep=fih.fused_ihgp_adf_plain)
     return -torch.sum(lZ)

@@ -6,13 +6,14 @@ For the headline model of ``chip_smoke.py`` (D=16, N=3, matern32/matern52,
 77 sigma points; its seeded signal), at each T (default 16 000) in float32
 on the card: the DARE bank (``build_tables``: the first call, which loads
 the card's solver libraries, then all tables and the forward tables alone),
-sweep 1 (the sequential steady ADF filter), the later-sweep
-passes with fixed sites (the sequential filter that re-matches the last
-site, the sequential smoother, the blocked filter and smoother at chunk
+sweep 1 (the sequential steady ADF filter, one launch of K5), the
+later-sweep passes with fixed sites (the sequential filter that re-matches
+the last site (K5), the sequential smoother (K6), the blocked filter and
+smoother at chunk
 2048, the one-level log-depth filter and smoother where T <= 20 000), and
 the all-T re-site, each in s and sweep 1 also in us per step; then the CUDA
-kernels and the device-busy time per step of sweep 1 (``torch.profiler``
-over T = 64 steps).  One JSON line per T, after the card's name and power
+kernels and the device-busy time per step of ``ihgp_energy``'s sweep, K5's
+plain twin, a loop over T (``torch.profiler`` over T = 64 steps).  One JSON line per T, after the card's name and power
 limit.
 """
 
@@ -31,6 +32,7 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import bench_inputs  # noqa: E402
 from nsgp_tpu_torch.inference import ihgp  # noqa: E402
+from nsgp_tpu_torch.ops import fused_ihgp as fih  # noqa: E402
 from nsgp_tpu_torch.ops.kalman import Sites  # noqa: E402
 
 CFG = ihgp.IHGPConfig(ep_itts=3, damping=(0.1,), moment_chunk=8192)  # bench.py's ihgp-seq
@@ -47,17 +49,17 @@ def timed(fn):
 
 
 def sweep1_kernels_per_step(model, params, y, T=64):
-    """CUDA kernels and device-busy us per step of sweep 1, and the traced
-    wall us per step."""
+    """CUDA kernels and device-busy us per step of the energy's sweep (K5's
+    plain twin), and the traced wall us per step."""
     from torch.profiler import ProfilerActivity, profile
 
     ssm = model.build_ssm(params)
     tables = ihgp.build_tables(ssm, CFG)
-    mom = ihgp._mom_point(model, params)
     zeros = torch.zeros((T, ssm.num_channels), dtype=y.dtype, device=y.device)
     mask = torch.ones(T, dtype=torch.bool, device=y.device)
-    run = lambda: ihgp._steady_filter_seq(ssm, tables, y[:T], mask, Sites(zeros, zeros), mom,
-                                          0.1, mask)
+    run = lambda: ihgp._steady_filter_seq(ssm, tables, y[:T], mask, Sites(zeros, zeros),
+                                          model.moment_params(), params.W, params.lik, 0.1, mask,
+                                          sweep=fih.fused_ihgp_adf_plain)
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -80,15 +82,15 @@ def probe(T: int, dev=torch.device("cuda")) -> dict:
         _, out["bank_first_call_s"] = timed(lambda: ihgp.build_tables(ssm, CFG))
         tables, out["bank_s"] = timed(lambda: ihgp.build_tables(ssm, CFG))
         _, out["bank_forward_only_s"] = timed(lambda: ihgp.build_tables(ssm, CFG, smoother=False))
-        mom = ihgp._mom_point(model, params)
+        lik = (model.moment_params(), params.W, params.lik)
         zeros = torch.zeros((T, ssm.num_channels), dtype=y.dtype, device=dev)
         (ms, idx, _, sites), s1 = timed(lambda: ihgp._steady_filter_seq(
-            ssm, tables, y, mask, Sites(zeros, zeros), mom, CFG.damp(0), mask))
+            ssm, tables, y, mask, Sites(zeros, zeros), *lik, CFG.damp(0), mask))
         out["sweep1_s"], out["sweep1_us_per_step"] = s1, 1e6 * s1 / T
         last = torch.zeros_like(mask)
         last[-1] = True
         _, out["seq_filter_s"] = timed(lambda: ihgp._steady_filter_seq(
-            ssm, tables, y, mask, sites, mom, CFG.damp(1), last))
+            ssm, tables, y, mask, sites, *lik, CFG.damp(1), last))
         _, out["seq_smoother_s"] = timed(lambda: ihgp._steady_smoother(
             ssm, tables, ms, idx, parallel=False))
         (mb, ib), out["blocked_filter_s"] = timed(lambda: ihgp._steady_filter_blocked(

@@ -20,9 +20,14 @@ ragged lengths (one chunk, one step more than a chunk, a short last chunk),
 every block size from 1 to 8, one channel and 190, with runs of zero sites and
 a long gap, for equal bits over two runs, exactly zero padded dims and NaN
 propagation.
+IHGP's two sequential passes, K5 (the steady ADF sweep, K3's moment match
+under a table lookup) and K6 (the steady smoother), are held against their
+plain twins with a NaN gap, fixed non-zero sites on unobserved steps, sites
+at exactly 0, 'sq' and 'exp', at mixture width (a cluster of eight CTAs)
+and, for K6, at every block size and at lengths around its block of steps.
 The plain-torch engines (the training path, IHGP's DARE bank and steady
 passes in their three forms) run on the card against the same code on the
-CPU.
+CPU, IHGP's through K5 and K6 on the card.
 Tolerances relative to the reference's max |value|: 1e-9 in float64 (the
 two differ in summation order and FMA contraction only), 1e-4 in float32
 at these short lengths.
@@ -609,7 +614,7 @@ def test_giekf_batch_card_matches_single_file(cuda, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The IHGP engine on the card (plain torch, no kernel of its own): the DARE
+# The IHGP engine on the card: K5 and K6 against their plain twins; the DARE
 # bank, the three forms of the steady passes and the energy's gradient, held
 # against the same code on the CPU at float64.
 # ---------------------------------------------------------------------------
@@ -643,8 +648,16 @@ def test_ihgp_infer_card_matches_cpu(cuda, form):
     from nsgp_tpu_torch.inference import ihgp
 
     model, params, y = _ihgp_case()
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
     cfg = ihgp.IHGPConfig(ep_itts=3, damping=(0.1, 0.025), keep_best=True, **form)
-    card, cpu = (ihgp.ihgp_infer(model, params, y, None, cfg, device=d) for d in (None, "cpu"))
+    fih.reset_launches()
+    card = ihgp.ihgp_infer(model, params, y, None, cfg)
+    # the sequential form: K5 and K6 every sweep; the parallel forms: K5 once
+    seq = not cfg.parallel
+    assert (fih.fused_ihgp_adf.launches, fih.fused_ihgp_smooth.launches) == (
+        (3, 3) if seq else (1, 0))
+    cpu = ihgp.ihgp_infer(model, params, y, None, cfg, device="cpu")
     assert card.Eft.device.type == "cuda"
     assert _rel([card.Eft.cpu(), card.Varft.cpu(), card.lZ.cpu(), card.nlZ.cpu(),
                  *(s.cpu() for s in card.sites)],
@@ -655,11 +668,158 @@ def test_ihgp_infer_card_matches_cpu(cuda, form):
 def test_ihgp_energy_gradient_card_matches_cpu(cuda):
     from nsgp_tpu_torch.inference.ihgp import ihgp_energy
 
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
     model, params, y = _ihgp_case()
     energy = lambda p, dev: ihgp_energy(model, p, y, None, device=dev)
+    fih.reset_launches()
     card = _grads(energy, params, cuda)
+    assert fih.fused_ihgp_adf.launches == 0  # autograd runs through the plain twin
     assert all(bool(torch.isfinite(g).all()) for g in card)
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
+
+
+
+def _steady_pass(model, params, y, mask, sites, match, damp=0.1, grid_lo=-2.0):
+    """One sequential IHGP forward pass through K5 and through its plain
+    twin on the same inputs: ((ms, idx, lZ, ttau, tnu) of each)."""
+    from nsgp_tpu_torch.inference import ihgp
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+    from nsgp_tpu_torch.ops.kalman import Sites
+
+    ssm = model.build_ssm(params)
+    tables = ihgp.build_tables(ssm, ihgp.IHGPConfig(grid_lo=grid_lo), smoother=False)
+    run = lambda sweep: ihgp._steady_filter_seq(
+        ssm, tables, y, mask, Sites(*sites), model.moment_params(), params.W, params.lik, damp,
+        match, sweep=sweep)
+    fih.reset_launches()
+    got = run(fih.fused_ihgp_adf)
+    assert fih.fused_ihgp_adf.launches == 1 and got[0].device.type == "cuda"
+    ms, idx, lZ, s = got
+    ms_p, idx_p, lZ_p, s_p = run(fih.fused_ihgp_adf_plain)
+    return (ms, idx, lZ, s.ttau, s.tnu), (ms_p, idx_p, lZ_p, s_p.ttau, s_p.tnu)
+
+
+def _steady_agree(got, ref, dtype):
+    """float64: grid indices equal and the rest within 1e-9; float32: a
+    flipped index (one ulp of the lookup's argument) sends the trajectory
+    elsewhere, so the steps before the first flip within 1e-4 and at most
+    1% of the indices flipped."""
+    flips = got[1] != ref[1]
+    if dtype == torch.float64:
+        assert not bool(flips.any())
+        assert _rel([got[0], got[2], got[3], got[4]], [ref[0], ref[2], ref[3], ref[4]]) <= 1e-9
+        return
+    rows = flips.any(dim=1)
+    n = int(rows.nonzero()[0, 0]) if bool(rows.any()) else rows.shape[0]
+    assert float(flips.double().mean()) <= 0.01
+    if n:
+        assert _rel([x[:n] for x in (got[0], got[2], got[3], got[4])],
+                    [x[:n] for x in (ref[0], ref[2], ref[3], ref[4])]) <= TOL[dtype]
+
+
+def _gap_signal(model, params, steps, seed):
+    y, _, _ = sample_prior(torch.Generator().manual_seed(seed), model, params, steps)
+    mask = torch.ones(steps, dtype=torch.bool, device=y.device)
+    mask[steps // 3: steps // 3 + 8] = False
+    return y, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["adf", "last_only", "zero_sites"])
+def test_ihgp_adf_kernel_matches_plain(cuda, case, dtype):
+    """K5 on the toy of ``_ihgp_case``: the ADF sweep (zero sites, every
+    step matched) with a gap; a later pass of the sequential form (the last
+    step matched, fixed sites elsewhere, non-zero on the unobserved steps:
+    their next row comes from tt, their index from tt_eff = 0); fixed sites
+    that are exactly 0 on a third of the steps (the pure-prediction branch)."""
+    model, params, y = _ihgp_case()
+    params = params.to(dtype=dtype, device=cuda)
+    mask = ~torch.isnan(y).to(cuda)
+    y = torch.nan_to_num(y).to(cuda, dtype)
+    steps, C = y.shape[0], model.D + model.N
+    rng = np.random.default_rng(11)
+    tt = rng.uniform(0.0, 40.0, (steps, C)) * (rng.uniform(size=(steps, C)) > 0.33)
+    tn = rng.normal(size=(steps, C)) * tt
+    sites = [torch.tensor(x, dtype=dtype, device=cuda) for x in (tt, tn)]
+    match = torch.ones(steps, dtype=torch.bool, device=cuda)
+    if case == "adf":
+        sites = [torch.zeros_like(sites[0])] * 2
+    else:
+        match[:-1] = False
+    if case == "zero_sites":
+        mask = torch.ones_like(mask)
+    got, ref = _steady_pass(model, params, y, mask, sites, match)
+    _steady_agree(got, ref, dtype)
+    gap = ~mask
+    if case == "adf":  # unobserved: lZ = 0, the top of the grid
+        assert float(got[2][gap].abs().max()) == 0.0
+        assert bool((got[1][gap] == 199).all())
+    if case == "last_only":  # the fixed sites pass through; idx from tt_eff = 0
+        assert torch.equal(got[3][:-1], sites[0][:-1]) and torch.equal(got[4][:-1], sites[1][:-1])
+        assert bool((got[1][gap] == 199).all())
+    again, _ = _steady_pass(model, params, y, mask, sites, match)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D,N,link,variant,steps", [
+    (3, 4, "exp", "sq", 64),  # 193 sigma points: two tiles
+    (48, 9, "softplus", "sq", 24),  # mixture width: 3973 points, a cluster of eight CTAs
+])
+def test_ihgp_adf_kernel_other_widths(cuda, D, N, link, variant, steps, dtype):
+    model, pB, _, _ = _files(1, D, N, dtype, cuda, link, variant, steps=steps)
+    params = pB.select(0)
+    y, mask = _gap_signal(model, params, steps, seed=4)
+    zeros = torch.zeros((steps, D + N), dtype=dtype, device=cuda)
+    match = torch.ones(steps, dtype=torch.bool, device=cuda)
+    got, ref = _steady_pass(model, params, y, mask, (zeros, zeros), match, grid_lo=-7.0)
+    _steady_agree(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("steps", [1, 2, 9, 17, 100])
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 5, 8])
+def test_ihgp_smooth_kernel_matches_plain(cuda, bs, steps, dtype):
+    """K6 against its twin at every block class (channels a warp 32 // bs,
+    idle lanes at bs = 3, 5), around its block of 8 (4 at bs > 4) steps,
+    C = 19 channels over G = 200 gains."""
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    rng = np.random.default_rng(bs * 100 + steps)
+    C, G = 19, 200
+    mk = lambda *s: torch.tensor(rng.normal(size=s), dtype=dtype, device=cuda)
+    A = mk(C, bs, bs) * (0.9 / bs)
+    Gn = mk(C, G, bs, bs) * (0.9 / bs)
+    ms = mk(steps, C * bs)
+    idx = torch.tensor(rng.integers(0, G, (steps, C)), device=cuda)
+    fih.reset_launches()
+    got = fih.fused_ihgp_smooth(ms, idx, A, Gn)
+    assert fih.fused_ihgp_smooth.launches == 1
+    ref = fih.fused_ihgp_smooth_plain(ms, idx, A, Gn)
+    assert got.shape == ref.shape and _rel([got], [ref]) <= TOL[dtype]
+    assert torch.equal(got[-1], ms[-1])
+
+
+@pytest.mark.cuda
+def test_ihgp_wrappers_refuse_what_they_cannot_run(cuda):
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    A = torch.zeros((4, 2, 2), device=cuda)
+    with pytest.raises(ValueError, match="Gn has shape"):
+        fih.fused_ihgp_smooth(torch.zeros((5, 8), device=cuda),
+                              torch.zeros((5, 4), dtype=torch.long, device=cuda), A,
+                              torch.zeros((4, 10, 2, 3), device=cuda))
+    model, params, y = _ihgp_case()
+    params = params.on(cuda)
+    y = torch.nan_to_num(y).to(cuda)
+    ones = torch.ones(y.shape[0], device=cuda)  # float flags: refused
+    zeros = torch.zeros((y.shape[0], model.D + model.N), dtype=y.dtype, device=cuda)
+    with pytest.raises(ValueError, match="bool"):
+        _steady_pass(model, params, y, ones, (zeros, zeros), ones > 0)
 
 
 def _speechlike_signal(T, seed=21):
