@@ -51,9 +51,15 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    at the path's own shape (T=16 000, C=57) and chunk length as in phase 5;
    the same call at T=2048 in float64 on the card against the CPU.
 
-7. the training path (``training_phase``): gradients and a fit card vs CPU at
-   float64, one value and gradient at T=8000 float32, a 3-step fit then a
-   gap fill on the fused path, HMC/VI, GIEKF; its line ``{"training": ...}``.
+7. the training path (``training_phase``): ``ep_energy``'s sweep 1 is K3
+   forward and its adjoint K7 ``fused_adf_vjp`` backward.  K7 against its
+   plain twin at the speech model's full width (T=1024, a NaN gap and an
+   outlier under the Z floor, cotangents on all five outputs and on lZ
+   alone) and at mixture width (S=3973, T=128), both dtypes; gradients and a
+   fit card vs CPU at float64; one value and gradient at the training length
+   T=16 000 float32 with its launches (K3 1, K7 1) and CUDA kernels a call;
+   a 3-step fit at T=16 000 then a gap fill on the fused path; HMC/VI at
+   T=2000; GIEKF; its line ``{"training": ...}``.
 8. the IHGP path (``ihgp_phase``) at the headline model: its sequential
    passes are K5 ``fused_ihgp_adf`` (the steady ADF sweep) and K6
    ``fused_ihgp_smooth`` (the steady smoother), counterparts of the two
@@ -181,15 +187,15 @@ TRAIN_SPECS = {"lik": "fixed", "sub_var": "fixed", "sub_len": (100.0, 2000.0), "
 LIK_TRAIN, LIK_MISSING = 1e-3, 1e-4
 SPEECH_GAPS = (1500, 5000, 7000, 9000, 13000, 18000)
 EVAL_ITTS = 20
-# T of each step: 7a's gradients at 1024 and 7b at half the script's training
-# length (16 000 -> 8000, to keep the whole script under 1100 s of its limit
-# with phase 11: 7b's us a step do not depend on T); the rest cut for time (a
-# value and gradient costs 6-8 ms a step on the card, PERF.md): 7a's fit at
-# 256, 7c's fit 16 000 -> 1024 (the gap fill
-# keeps the whole 20 000-sample signal, long enough for all six gaps), 7d
-# 2000 -> 32, 7e 256 for the card-vs-CPU check and 1024 for the float32 timing.
-T_GRAD, T_FIT_PARITY, T_TRAIN, T_FIT, T_GAPS = 1024, 256, 8000, 1024, 20_000
-T_HMC, T_GIEKF, T_GIEKF_LONG = 32, 256, 1024
+# T of each step: 7b and 7c at the script's training length 16 000, 7d at
+# hmc_hypers' own 2000 (sweep 1 is K3 and K7 on the card); the card-vs-CPU
+# checks where the CPU runs the plain twins, Python loops over T: 7a's
+# gradients and K7's comparisons at 1024 (the mixture width at 128), 7a's fit
+# at 256, 7e 256 for the card-vs-CPU check and 1024 for the float32 timing.
+# The gap fill keeps the whole 20 000-sample signal, long enough for all six gaps.
+T_GRAD, T_FIT_PARITY, T_TRAIN, T_FIT, T_GAPS = 1024, 256, 16_000, 16_000, 20_000
+T_HMC, T_GIEKF, T_GIEKF_LONG = 2000, 256, 1024
+T_VJP, T_VJP_MIX, VJP_GAP, VJP_OUTLIER = 1024, 128, (300, 340), 600
 # experiments/hmc_hypers.py:45-71: the toy and its boxes
 HMC_SPECS = {"lik": (1e-4, 0.1), "sub_var": "fixed", "sub_len": "fixed", "omega": "fixed",
              "mod_var": (0.5, 8.0), "mod_len": (50.0, 800.0), "W": "fixed"}
@@ -309,6 +315,8 @@ KERNELS = {
     # the lax.scan of _steady_filter_seq and of _steady_smoother
     "fused_ihgp_adf": ("nsgp_tpu/inference/ihgp.py:402", "fused_ihgp_adf.cuh"),
     "fused_ihgp_smooth": ("nsgp_tpu/inference/ihgp.py:658", "fused_ihgp_smooth.cuh"),
+    # the transposed scan that jax.value_and_grad derives from adf_filter's lax.scan
+    "fused_adf_vjp": ("nsgp_tpu/ops/kalman.py:239", "fused_adf_vjp.cuh"),
 }
 
 
@@ -366,6 +374,18 @@ def bound_adf(T, BF, D_, N_, S, bs, observed_steps, itemsize=4):
     n = T * BF * (2 + 1 + 2 * C + C * (bs + bs * bs)) + BF * (C * (3 * bs * bs + bs) + D_ * N_ + 1) \
         + S * (N_ + 1)
     flops = T * BF * C * filter_flops(bs) + observed_steps * (S * sigma_flops(D_, N_) + 12 * C)
+    return bound(n * itemsize, flops)
+
+
+def bound_adf_vjp(T, D_, N_, S, bs, observed_steps, cotangent_values, itemsize=4):
+    """K7: reads K3's inputs, its filtered ms and Ps and ``cotangent_values``
+    numbers of output cotangents, writes the parameters' cotangents.
+    Operations three times K3's: re-deriving a step, then its reverse (reverse
+    mode costs about twice the forward)."""
+    C = D_ + N_
+    params = C * (3 * bs * bs + bs) + D_ * N_ + 1
+    n = T * (2 + C * (bs + bs * bs)) + cotangent_values + 2 * params + S * (N_ + 1)
+    flops = 3 * (T * C * filter_flops(bs) + observed_steps * (S * sigma_flops(D_, N_) + 12 * C))
     return bound(n * itemsize, flops)
 
 
@@ -574,7 +594,7 @@ def compare(label, name, kern, plain, tol, time_reps, timed=None, rows=slice(Non
     if not all(torch.equal(a, b) for a, b in zip(out_k, kern())):
         raise AssertionError(f"{name} ({label}): two runs on the same inputs differ in their bits")
     out_p, plain_ms = plain if isinstance(plain, tuple) else timed_plain(plain)
-    err_abs, err_rel = max_err([x[rows] for x in out_k], out_p)
+    err_abs, err_rel = max_err([x[rows] if x.dim() else x for x in out_k], out_p)
     ms = cuda_ms(timed or kern, time_reps)
     log(f"{label} {name}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e} (tol {tol:g}) "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f}")
@@ -598,6 +618,32 @@ def adf_case(model, params, y, mask, steps=None):
     args = (y[:n].to(dt_), mask[:n].to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi, wn,
             params.lik)
     return lambda: fk.fused_adf(*args, **kw), lambda: fk.fused_adf_plain(*args, **kw)
+
+
+def vjp_case(model, params, y, mask, only_lZ, g_lZ=None, seed=11):
+    """(kernel call, plain call, K3's outputs) for K7 on the card, same
+    inputs: K3's outputs, and seeded normal cotangents on all five outputs
+    or on lZ alone (``g_lZ`` given: that one alone)."""
+    import torch
+
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    ssm = model.build_ssm(params)
+    dt_, dev = ssm.A.dtype, ssm.A.device
+    mp = model.moment_params()
+    wn, xi = fk.sigma_points(mp, dt_, dev)
+    kw = dict(damp=0.5, link=mp.link, variant=mp.variant, z_floor=mp.z_floor)
+    args = (torch.nan_to_num(y).to(dt_), mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H,
+            params.W.to(dt_), xi, wn, params.lik.to(dt_))
+    outs = fk.fused_adf(*args, **kw)
+    rng = np.random.default_rng(seed)
+    cots = [torch.tensor(rng.normal(size=tuple(o.shape)), dtype=dt_, device=dev)
+            if i == 2 or not only_lZ else None for i, o in enumerate(outs)]
+    if g_lZ is not None:
+        cots = [None, None, g_lZ.to(dt_), None, None]
+    vjp_args = args + (outs[0], outs[1], *cots)
+    return (lambda: fk.fused_adf_vjp(*vjp_args, **kw),
+            lambda: fk.fused_adf_vjp_plain(*vjp_args, **kw), outs)
 
 
 def kalman_compare(label, ssm, sites_np, tol, time_reps):
@@ -789,9 +835,11 @@ def require(ok, msg: str) -> None:
 
 
 def training_phase(smi, dev):
-    """Phase 7: the training path on the card ``dev`` (no kernel of its own:
-    autograd through the sequential engine), then a gap fill on the fused
-    path with what it learned.  Returns the numbers of the ``training`` line."""
+    """Phase 7: the training path on the card ``dev``: ``ep_energy``'s sweep 1
+    through K3 and its adjoint K7, later sweeps autograd through the
+    sequential engine; then a gap fill on the fused path with what it
+    learned.  Returns the numbers of the ``training`` line (K7's kernel
+    numbers under ``fused_adf_vjp``)."""
     import torch
 
     from nsgp_tpu_torch.apps.missing_data import fill_gaps
@@ -799,6 +847,7 @@ def training_phase(smi, dev):
     from nsgp_tpu_torch.inference.giekf import GIEKFConfig, giekf_energy, giekf_infer
     from nsgp_tpu_torch.inference.hmc import HMCConfig, hmc_sample, make_log_post, vi_fit
     from nsgp_tpu_torch.inference.learn import Transform, fit_hyperparams, make_energy_fn
+    from nsgp_tpu_torch.models import mixture
     from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
     from nsgp_tpu_torch.ops import fused_kalman as fk
     from nsgp_tpu_torch.tools.probe_train import kernels_per_step
@@ -806,17 +855,37 @@ def training_phase(smi, dev):
     t_phase = time.perf_counter()
     out = {"device": smi}
 
-    # ---- 7a: card vs CPU, float64 ---------------------------------------------
+    # ---- 7a: K7 against its plain twin; card vs CPU, float64 ------------------
+    counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
+    vjp_checks = {}
+    for dtype, tol, label in ((torch.float64, TOL_F64, "f64"), (torch.float32, TOL_F32, "f32")):
+        model, p_v, y_v = speech_inputs(dtype, dev, T_VJP)
+        mask_v = torch.ones(T_VJP, dtype=torch.bool, device=dev)
+        mask_v[VJP_GAP[0]:VJP_GAP[1]] = False  # a NaN gap
+        y_v = torch.where(mask_v, y_v, torch.full_like(y_v, math.nan))
+        y_v[VJP_OUTLIER] = 50.0 * y_v[mask_v].std()  # drives Z under its floor
+        for cots in ("all", "lZ"):
+            kern, plain, outs = vjp_case(model, p_v, y_v, mask_v, cots == "lZ")
+            floor = math.log(model.z_floor)
+            require(abs(outs[2][VJP_OUTLIER].item() - floor) <= 1e-6 * abs(floor),
+                    "phase7a: the outlier does not reach the Z floor")
+            vjp_checks[f"{label}_{cots}"] = compare(
+                f"phase7a {label} T={T_VJP} D={model.D} N={model.N} S=77 gap {VJP_GAP} outlier "
+                f"at {VJP_OUTLIER}, cotangents on {cots}", "fused_adf_vjp", kern, plain, tol, 3)
+        models, plist, y_mix, _ = mixture_inputs(dtype, dev, T_VJP_MIX)
+        jm, jp, _ = mixture.join_models(models, plist, lik=MIX_LIK)
+        kern, plain, _ = vjp_case(jm, jp, y_mix, torch.ones_like(y_mix, dtype=torch.bool), False)
+        vjp_checks[f"{label}_mixture"] = compare(
+            f"phase7a {label} T={T_VJP_MIX} D={jm.D} N={jm.N} S=3973 (one CTA, rounds)",
+            "fused_adf_vjp", kern, plain, tol, 1)
     model, init64, y64 = speech_inputs(torch.float64, "cpu", T_GAPS)
     C = model.D + model.N
-    grads64 = {}
     for itts in (1, 3):
         (e_c, g_c), s_card = host_s(lambda: energy_and_grad(model, init64, y64[:T_GRAD].to(dev),
                                                             itts, dev))
         t0 = time.perf_counter()
         e_h, g_h = energy_and_grad(model, init64, y64[:T_GRAD], itts, "cpu")
         s_cpu = time.perf_counter() - t0
-        grads64[itts] = g_c
         e_rel, g_rel = rel_err(e_c, e_h), rel_err(g_c, g_h)
         log(f"phase7a ep_energy ep_itts={itts} T={T_GRAD} f64 ({model.variant}, D={model.D}, "
             f"N={model.N}, C={C}): energy {e_c.item():.10g}, card vs cpu rel {e_rel:.3e}, "
@@ -841,48 +910,85 @@ def training_phase(smi, dev):
     # ---- 7b: the training shape, float32 ----------------------------------------
     _, init32, y32 = speech_inputs(torch.float32, dev, T_GAPS)
     cfg1 = EPConfig(ep_itts=1)
+    energy32 = lambda p, T_: ep_energy(model, p, y32[:T_], None, cfg1)
     with torch.no_grad():
-        e_fwd, fwd_s = host_s(lambda: ep_energy(model, init32, y32[:T_TRAIN], None, cfg1))
+        energy32(init32, T_TRAIN)  # warm-up
+        e_fwd, fwd_s = host_s(lambda: energy32(init32, T_TRAIN))
     torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
     (e32, g32), vg_s = host_s(lambda: energy_and_grad(model, init32, y32[:T_TRAIN], 1, dev))
+    vg_launches = counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    with torch.no_grad():
-        e64 = ep_energy(model, init64.on(dev), y64[:T_TRAIN].to(dev), None, cfg1).cpu()
-    e_gap = rel_err(e32, e64)
-    _, g32_short = energy_and_grad(model, init32, y32[:T_GRAD], 1, dev)
-    g_gap = rel_err(g32_short, grads64[1])
-    (k_fwd, k_bwd), (b_fwd, b_bwd), (w_fwd, w_bwd) = kernels_per_step(
-        lambda p: ep_energy(model, p, y32[:64], None, cfg1), init32, 64)
-    idle = 1.0 - (b_fwd + b_bwd) / (w_fwd + w_bwd)
-    log(f"phase7b ep_energy T={T_TRAIN} f32 on {smi}: forward alone {fwd_s:.2f} s "
-        f"({1e6 * fwd_s / T_TRAIN:.0f} us/step); value+grad {vg_s:.2f} s "
-        f"({1e6 * vg_s / T_TRAIN:.0f} us/step); peak memory {peak_mib:.0f} MiB; per ADF step "
-        f"(T=64, traced) CUDA kernels forward {k_fwd:.1f}, backward {k_bwd:.1f}, device busy "
-        f"{b_fwd:.0f} of {w_fwd:.0f} us forward, {b_bwd:.0f} of {w_bwd:.0f} us backward "
-        f"(idle share {idle:.3f})")
-    log(f"phase7b f32 vs f64: energy {e32.item():.8g} vs {e64.item():.8g}, rel gap {e_gap:.3e} "
-        f"(bar 1e-3); gradient at T={T_GRAD} rel to max {g_gap:.3e}; forward-alone energy "
+    want = {"fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1}
+    require(vg_launches == want, f"phase7b: a value and gradient launched {vg_launches}, not {want}")
+    (e64, g64), vg64_s = host_s(lambda: energy_and_grad(model, init64, y64[:T_TRAIN].to(dev), 1,
+                                                        dev))
+    e_gap, g_gap = rel_err(e32, e64), rel_err(g32, g64)
+    per_call = {}
+    for T_ in (T_GRAD, T_TRAIN):  # no eager per-step loop: kernels a call do not grow with T
+        (k_fwd, k_bwd), (b_fwd, b_bwd), (w_fwd, w_bwd) = kernels_per_step(
+            lambda p: energy32(p, T_), init32, T_)
+        per_call[T_] = dict(kernels_forward=k_fwd * T_, kernels_backward=k_bwd * T_,
+                            device_busy_s=1e-6 * (b_fwd + b_bwd) * T_,
+                            traced_wall_s=1e-6 * (w_fwd + w_bwd) * T_,
+                            idle_share=1.0 - (b_fwd + b_bwd) / (w_fwd + w_bwd))
+    grow = ((per_call[T_TRAIN]["kernels_forward"] + per_call[T_TRAIN]["kernels_backward"])
+            / (per_call[T_GRAD]["kernels_forward"] + per_call[T_GRAD]["kernels_backward"]))
+    require(grow <= 1.1, f"phase7b: CUDA kernels a call grow {grow:.2f}x from T={T_GRAD} to "
+                         f"{T_TRAIN}: a per-step loop")
+    # K3 and K7 alone on this run's inputs, lZ's cotangent the one a value and
+    # gradient at ep_itts=1 gives (-1 on every step)
+    kern, _, outs = vjp_case(model, init32, y32[:T_TRAIN], torch.ones(T_TRAIN, dtype=torch.bool,
+                                                                      device=dev), True,
+                             g_lZ=-torch.ones(T_TRAIN, device=dev))
+    k7_ms = cuda_ms(kern, 3)
+    k3_ms = cuda_ms(adf_case(model, init32, y32[:T_TRAIN],
+                             torch.ones(T_TRAIN, dtype=torch.bool, device=dev))[0], 3)
+    bs_t = model.build_ssm(init32).block_size
+    pc = per_call[T_TRAIN]
+    log(f"phase7b ep_energy T={T_TRAIN} f32 on {smi}: forward alone {fwd_s:.3f} s "
+        f"({1e6 * fwd_s / T_TRAIN:.1f} us/step); value+grad {vg_s:.3f} s "
+        f"({1e6 * vg_s / T_TRAIN:.1f} us/step), launches {vg_launches}; K3 alone {k3_ms:.2f} ms, "
+        f"K7 alone {k7_ms:.2f} ms ({1e3 * k7_ms / T_TRAIN:.2f} us/step); peak memory "
+        f"{peak_mib:.0f} MiB; CUDA kernels a call (traced) forward {pc['kernels_forward']:.0f}, "
+        f"backward {pc['kernels_backward']:.0f} (at T={T_GRAD}: "
+        f"{per_call[T_GRAD]['kernels_forward']:.0f}, "
+        f"{per_call[T_GRAD]['kernels_backward']:.0f}), device busy {pc['device_busy_s']:.3f} of "
+        f"{pc['traced_wall_s']:.3f} s (idle share {pc['idle_share']:.3f}); f64 value+grad "
+        f"{vg64_s:.3f} s")
+    log(f"phase7b f32 vs f64 at T={T_TRAIN}: energy {e32.item():.8g} vs {e64.item():.8g}, rel gap "
+        f"{e_gap:.3e} (bar 1e-3); gradient rel to max {g_gap:.3e}; forward-alone energy "
         f"{e_fwd.item():.8g}")
     require(math.isfinite(e_gap) and e_gap < 1e-3, "float32 energy drifted from float64")
     require(bool(torch.isfinite(g32).all()), "non-finite float32 gradient")
-    # The key keeps the name it had at T=16000; "T" inside is the length run.
     out["t16000"] = dict(T=T_TRAIN, forward_s=fwd_s, value_grad_s=vg_s,
                          forward_us_per_step=1e6 * fwd_s / T_TRAIN,
-                         value_grad_us_per_step=1e6 * vg_s / T_TRAIN,
-                         kernels_per_step_forward=k_fwd, kernels_per_step_backward=k_bwd,
-                         device_busy_us_per_step=(b_fwd, b_bwd), traced_idle_share=idle,
-                         peak_mib=peak_mib, energy_rel_gap_f64=e_gap,
-                         grad_rel_gap_f64_at_T1024=g_gap)
+                         value_grad_us_per_step=1e6 * vg_s / T_TRAIN, launches=vg_launches,
+                         k3_ms=k3_ms, k7_ms=k7_ms, per_call=per_call, peak_mib=peak_mib,
+                         energy_rel_gap_f64=e_gap, grad_rel_gap_f64=g_gap,
+                         value_grad_f64_s=vg64_s)
+    out["fused_adf_vjp"] = dict(
+        launches=vg_launches["fused_adf_vjp"], ms=k7_ms,
+        max_abs_err=vjp_checks["f32_lZ"]["max_abs_err"], plain_ms=vjp_checks["f32_lZ"]["plain_ms"],
+        plain_steps=T_VJP, bound=bound_adf_vjp(T_TRAIN, model.D, model.N, 77, bs_t, T_TRAIN,
+                                               T_TRAIN),
+        shape=f"T={T_TRAIN} D={model.D} N={model.N} S=77 bs={bs_t} f32",
+        checks=vjp_checks)
 
     # ---- 7c: a trainer that takes a few steps, then uses what it learned --------
+    fk.reset_launches()
     fit32, fit_s = host_s(lambda: fit_hyperparams(model, init32, y32[:T_FIT], specs=TRAIN_SPECS,
                                                     steps=3, learning_rate=1e-2, ep_itts=1))
+    fit_launches = counts()
+    require(fit_launches["fused_adf"] == 3 and fit_launches["fused_adf_vjp"] == 3,
+            f"phase7c: 3 Adam steps launched {fit_launches}, not K3 3 and K7 3")
     require(bool(torch.isfinite(fit32.energies).all()), "non-finite training energies")
     gaps = torch.zeros(T_GAPS, dtype=torch.bool)
     for c in SPEECH_GAPS:
         gaps[c - 1 - GAP_HALF: c + GAP_HALF] = True
     snr = {}
-    want = {"fused_fwd": EVAL_ITTS - 1, "fused_bwd": EVAL_ITTS, "fused_adf": 1, "fused_adf_mb": 0}
+    want = {"fused_fwd": EVAL_ITTS - 1, "fused_bwd": EVAL_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
+            "fused_adf_vjp": 0}
     for name, p in (("init", init32), ("learned", fit32.params)):
         leaves = {k: v for k, v in p.named_buffers()}
         leaves["lik"] = torch.tensor(LIK_MISSING, dtype=torch.float32, device=dev)
@@ -897,10 +1003,12 @@ def training_phase(smi, dev):
         snr[name] = g.snr_gaps.item()
         log(f"phase7c fill_gaps ({name} hypers, lik {LIK_MISSING:g}) T={T_GAPS} {EVAL_ITTS} sweeps "
             f"fused f32: gap SNR {snr[name]:.3f} dB, {s:.2f} s, launches {counts}")
-    log(f"phase7c fit_hyperparams 3 Adam steps T={T_FIT} f32 on the card: {fit_s:.2f} s, energies "
+    log(f"phase7c fit_hyperparams 3 Adam steps T={T_FIT} f32 on the card: {fit_s:.2f} s, launches "
+        f"{fit_launches}, energies "
         f"{fit32.energies.cpu().tolist()}; learned mod_len "
         f"{fit32.params.mod_len.cpu().tolist()} (synthetic signal: SNRs not asserted)")
-    out["fit"] = dict(T=T_FIT, steps=3, s=fit_s, energies=fit32.energies.cpu().tolist())
+    out["fit"] = dict(T=T_FIT, steps=3, s=fit_s, energies=fit32.energies.cpu().tolist(),
+                      launches=fit_launches)
     out["gap_snr_db"] = snr
 
     # ---- 7d: HMC and VI on the hmc_hypers toy ---------------------------------
@@ -1616,7 +1724,7 @@ def denoise_phase(smi, dev):
                                                row["log_spec_snr_out_db"])),
                 f"non-finite denoising metrics at v={v}")
     want = {"fused_adf": 1, "fused_bwd": DN_KW["ep_itts"], "fused_fwd": DN_KW["ep_itts"] - 1,
-            "fused_adf_mb": 0}
+            "fused_adf_mb": 0, "fused_adf_vjp": 0}
     log(f"phase9c launches in one denoise call: {launches} (want {want})")
     require(launches == want, f"launch counts {launches} != {want}: the denoising path missed "
             f"a kernel")
@@ -1719,7 +1827,7 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
         launches = counts()
         out["s"]["a"] = time.perf_counter() - t0
         want = {"fused_fwd": 2 * sum(i - 1 for i in GRID_ITTS), "fused_bwd": 2 * sum(GRID_ITTS),
-                "fused_adf": 0, "fused_adf_mb": 2 * len(GRID_ITTS)}
+                "fused_adf": 0, "fused_adf_mb": 2 * len(GRID_ITTS), "fused_adf_vjp": 0}
         files = grid["files"]
         pad_T = files[0]["pad_T"]
         rows = [(f["file"], r) for f in files for r in f["rows"]]
@@ -1856,7 +1964,9 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
 
         write_wav(os.path.join(exps.AUDIO_ROOT, "speech", "speech0_female.wav"),
                   0.9 * y_sp / np.abs(y_sp).max(), 16000)
+        fk.reset_launches()
         ho = train_hyperopt.run_file("speech", "speech0_female", steps=HO_STEPS, device=dev)
+        ho_launches = counts()
         out["s"]["e"] = time.perf_counter() - t0
         log(f"phase10e synthetic.run T={T_SYN} ep_itts={SYN_ITTS} f32: " + ", ".join(
             f"{e} rmse_sig {syn[e]['rmse_sig']:.4g} ({syn[e]['seconds']} s)"
@@ -1864,7 +1974,11 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
             f"{syn_s:.1f} s")
         log(f"phase10e train_hyperopt.run_file speech0_female T={T_HO} {HO_STEPS} steps f32: "
             f"energies {ho['energy_trace']} in {ho['opt_seconds']} s; gap SNR init "
-            f"{ho['snr_gaps_init_db']:.3f} dB, learned {ho['snr_gaps_learned_db']:.3f} dB")
+            f"{ho['snr_gaps_init_db']:.3f} dB, learned {ho['snr_gaps_learned_db']:.3f} dB; "
+            f"launches {ho_launches}")
+        require(ho_launches["fused_adf_vjp"] == HO_STEPS,
+                f"phase10e: train_hyperopt's {HO_STEPS} steps launched K7 "
+                f"{ho_launches['fused_adf_vjp']} times")
         require(all(math.isfinite(syn[e]["rmse_sig"]) for e in ("ep", "ihgp", "giekf")),
                 "phase10e: non-finite synthetic rows")
         require(all(math.isfinite(v) for v in ho["energy_trace"] + [
@@ -1873,6 +1987,7 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
         out["train_hyperopt"] = {k: ho[k] for k in ("T", "steps", "opt_seconds", "energy_trace",
                                                     "snr_gaps_init_db", "snr_gaps_learned_db",
                                                     "learned")}
+        out["train_hyperopt"]["launches"] = ho_launches
     finally:
         os.chdir(cwd)
         exps.AUDIO_ROOT = audio_root
@@ -2040,7 +2155,8 @@ def mesh_phase(smi):
             f"{[r[label]['launches'] for r in ranks[:2]]} on {smi}")
         require(a["rel"] <= tol, f"phase11 {label}: sharded EP disagrees with unsharded")
         require(ranks[1][label]["checksum"] == a["checksum"], f"phase11 {label}: ranks differ")
-        want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0}
+        want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
+                "fused_adf_vjp": 0}
         for r in ranks[:2]:
             require(r[label]["launches"] == want, f"phase11 {label}: rank {r['rank']} launched "
                                                   f"{r[label]['launches']}, not {want}")
@@ -2234,7 +2350,8 @@ def main() -> int:
     fk.reset_launches()
     res, first_s = host_s(lambda: ep_infer(model, params, y, None, cfg))
     launches_single = counts()
-    want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0}
+    want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
+            "fused_adf_vjp": 0}
     nlZ = res.nlZ.cpu().numpy()
     log(f"phase2 first run {first_s:.3f} s launches={launches_single} nlZ={nlZ.tolist()} "
         f"maxdiff={res.maxdiff.cpu().numpy().tolist()}")
@@ -2343,7 +2460,8 @@ def main() -> int:
     fk.reset_launches()
     gres, first_s = host_s(run_batch)
     launches_batch = counts()
-    want = {"fused_adf_mb": 1, "fused_bwd": EP_ITTS, "fused_fwd": EP_ITTS - 1, "fused_adf": 0}
+    want = {"fused_adf_mb": 1, "fused_bwd": EP_ITTS, "fused_fwd": EP_ITTS - 1, "fused_adf": 0,
+            "fused_adf_vjp": 0}
     rb = gres.result
     log(f"phase5 fill_gaps_batch BF={BF_c} T={T_c} lengths={lengths} f32 first call "
         f"{first_s:.3f} s launches={launches_batch}")
@@ -2475,7 +2593,10 @@ def main() -> int:
     # all T, so `max_abs_err` is of the launch that `chunk` and `chunks`
     # describe; `one_chunk_max_abs_err` is over all T against the same kernel
     # as one sequential chunk); `other_shapes` holds the same numbers where
-    # another path runs the kernel at another shape.  No single PyTorch call computes a T-long
+    # another path runs the kernel at another shape.  K7 is the training
+    # path's (phase 7b: one value and gradient at T=16 000, its `ms` K7 alone
+    # on that run's inputs, `max_abs_err` and `plain_ms` 7a's float32 check
+    # with lZ's cotangent over `plain_steps`, every 7a check in `checks`).  No single PyTorch call computes a T-long
     # data-dependent recursion, so `library_ms` is null throughout.
     def numbers(nums, shape, **more):
         nums = dict(nums)
@@ -2533,6 +2654,21 @@ def main() -> int:
                    [numbers({k: v for k, v in mix5.items() if k != "shape"}, mix5["shape"])]),
         ihgp_entry("fused_ihgp_smooth", f"T={T_MAIN} C={D + N} bs=4 G=200 f32"),
     ]
+    vjp = training["fused_adf_vjp"]
+    replaces, source = KERNELS["fused_adf_vjp"]
+    kernels.append(dict(
+        name="fused_adf_vjp", route="cuda", source=f"nsgp_tpu_torch/csrc/{source}",
+        replaces=replaces, launches=vjp["launches"], library_ms=None,
+        **numbers({k: vjp[k] for k in ("ms", "plain_ms", "plain_steps", "max_abs_err", "bound")},
+                  vjp["shape"]),
+        launches_by_path={"training": vjp["launches"],
+                          "training_fit_3_steps": training["fit"]["launches"]["fused_adf_vjp"],
+                          "single": launches_single["fused_adf_vjp"],
+                          "batch": launches_batch["fused_adf_vjp"],
+                          "mixture": launches_mix["fused_adf_vjp"],
+                          "experiments": launches_exp["fused_adf_vjp"],
+                          "mesh": [r["fused_adf_vjp"] for r in mesh_numbers["launches_by_rank"]]},
+        checks=vjp["checks"], threads=fk.adf_launch_shape(77)["threads"], cluster=1))
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
     print(json.dumps({"denoise": denoise_numbers}), flush=True)

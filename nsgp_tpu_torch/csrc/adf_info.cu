@@ -1,8 +1,8 @@
-// What the wrappers of the ADF kernels (K3, K4) ask before a launch: the
-// thread count, the widest model, the cluster size for S sigma points and the
-// number of probe phases.
+// What the wrappers of the ADF kernels (K3, K4, K7) ask before a launch: the
+// thread count, the widest model, the cluster size for S sigma points, the
+// number of probe phases and the float64 scratch of K7.
 
-#include "adf_step.cuh"
+#include "fused_adf_vjp.cuh"
 
 extern "C" {
 
@@ -10,5 +10,8 @@ int nsgp_adf_threads() { return ADF_THREADS; }
 int nsgp_adf_max_width() { return ADF_MAX_WIDTH; }
 int nsgp_adf_cluster(int S) { return adf_cluster_size(S); }
 int nsgp_adf_probe_phases() { return ADF_PROBE_PHASES; }
+long long nsgp_adf_vjp_scratch(int D, int N, int bs) {
+  return (long long)vjp_scratch_doubles(D, N, bs);
+}
 
 }  // extern "C"

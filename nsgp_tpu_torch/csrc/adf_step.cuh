@@ -203,18 +203,33 @@ __device__ __forceinline__ T merge_partials(int P, RecFn rec, int mslot, const i
 // and update; slot ADF_PROBE_PHASES holds the observed steps.
 constexpr int ADF_PROBE_PHASES = 9;
 
+// clock64() sums per phase of one thread (with -DNSGP_CLOCK_PROBE; without
+// it an empty shell that compiles to nothing).
+struct AdfProbe {
 #ifdef NSGP_CLOCK_PROBE
-#define ADF_PROBE_MARK(i)                 \
-  do {                                    \
-    if (probing) {                        \
-      const long long c_now = clock64();  \
-      cycv[i] += c_now - c_last;          \
-      c_last = c_now;                     \
-    }                                     \
-  } while (0)
+  bool on;
+  long long cyc[ADF_PROBE_PHASES];
+  long long last;
+  __device__ __forceinline__ explicit AdfProbe(bool on_) : on(on_), cyc{}, last(clock64()) {}
+  __device__ __forceinline__ void mark(int i) {
+    if (on) {
+      const long long now = clock64();
+      cyc[i] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void write(long long* out, int n_seen) const {
+    if (on) {
+      for (int i = 0; i < ADF_PROBE_PHASES; ++i) out[i] = cyc[i];
+      out[ADF_PROBE_PHASES] = n_seen;
+    }
+  }
 #else
-#define ADF_PROBE_MARK(i)
+  __device__ __forceinline__ explicit AdfProbe(bool) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long*, int) const {}
 #endif
+};
 
 // What the moment match of every ADF sweep reads: the observation stream and
 // the likelihood.  y, obs (T, BF): the samples, and the steps whose moments
@@ -361,80 +376,523 @@ struct CovRecursion {
   }
 };
 
-// The sweep over one file b = blockIdx.x / R by its cluster of R CTAs, the
-// recursion Rec carried between the moment matches.  R is a parameter of its
+// One CTA's share of the moment match of a sweep over file b by its cluster
+// of R CTAs: the thread map, the shared layout, and what is staged once per
+// launch (the padding, W transposed, the CTA's own sigma points).  Built by
+// every thread; a __syncthreads() must follow before the first step.  Its
+// members are the phases of a step that every thread runs: publish (the
+// channel threads' marginals, end of phase 1), match (phases 2 and 3: the
+// totals of the sigma points, merged into the channel threads) and match_vjp
+// (the reverse of match, for the adjoint kernels).  R is a parameter of its
 // own so that the one-CTA instantiation folds it to 1.
+template <typename T, int PB>
+struct AdfStep {
+  static constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
+  AdfLayout L;
+  const T* xi;
+  const T* wn;
+  T sn2, sq_floor;
+  int D, N, S, R, rank, tid, w, lane, g_lane, grp, d0, round_pts, own, mslot;
+  int slots[3];  // where this channel's Z and two totals sit in a record
+  bool link_exp, sq, chan;
+  T* sh;
+  T* fmu_z;   // [Dp] subband means, zero beyond D
+  T* hph_z;   // [Dp] subband variances, zero beyond D
+  T* mu_g;    // [Dp] modulator means, zero beyond N
+  T* sd_g;    // [Dp] sqrt(max(s2_g, 0)), zero beyond N
+  T* Wt;      // [N][Dp] W transposed, zero beyond D
+  T* lk_w;    // [N][PT] this warp's link values
+  T* part;    // [NW][rec] the warps' partial records
+  T* cta_rec; // [2][rec] this CTA's merged record, double-buffered
+  const T* xi_sh;  // [nloc][N] this CTA's sigma points, in walking order
+  const T* wn_sh;  // [nloc]
+
+  __device__ __forceinline__ AdfStep(const AdfCore<T>& core, int b, const int R_, T* sh_)
+      : L(adf_layout(core.D, core.N, core.S, R_, sizeof(T))), xi(core.xi), wn(core.wn),
+        sq_floor(core.sq_floor), D(core.D), N(core.N), S(core.S), R(R_),
+        link_exp(core.link_exp != 0), sq(core.sq != 0), sh(sh_) {
+    tid = threadIdx.x;
+    w = tid >> 5;
+    lane = tid & 31;
+    rank = R > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    g_lane = lane & (L.G - 1);
+    grp = lane >> L.lg;
+    d0 = g_lane * DB;  // this lane's subbands and modulators
+    const int Dp = L.Dp;
+    fmu_z = sh + L.fmu;
+    hph_z = sh + L.hph;
+    mu_g = sh + L.mug;
+    sd_g = sh + L.sdg;
+    Wt = sh + L.Wt;
+    lk_w = sh + L.lk + w * N * L.PT;
+    part = sh + L.part;
+    cta_rec = sh + L.cta;
+    xi_sh = sh + L.xi;
+    wn_sh = sh + L.wn;
+    // ---- once per launch: padding, W, the CTA's own sigma points ----------
+    round_pts = L.GC * PB;  // points a CTA takes per round
+    for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
+    const T* W = core.W + (size_t)b * D * N;
+    for (int i = tid; i < N * Dp; i += NT) {
+      const int n = i / Dp, d = i - n * Dp;
+      Wt[i] = d < D ? W[d * N + n] : T(0);
+    }
+    if (L.staged) {
+      T* xs = sh + L.xi;
+      T* ws = sh + L.wn;
+      for (int loc = tid; loc < L.nloc; loc += NT) {
+        const int kr = loc / round_pts;
+        const int s = (kr * R + rank) * round_pts + (loc - kr * round_pts);
+        ws[loc] = s < S ? wn[s] : T(0);
+        for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
+      }
+    }
+    sn2 = core.sn2[b];
+    chan = tid < D + N;  // channel tid of file b
+    own = tid < D ? tid : tid - D;
+    const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
+    slots[0] = 0;
+    slots[1] = k1;
+    slots[2] = k1 + DB;
+    mslot = L.G * NACC;
+  }
+
+  // End of phase 1, a channel thread of a matched step: its predicted
+  // marginal where the points read it (a modulator's sd = sqrt(max(var, 0))).
+  __device__ __forceinline__ void publish(T fmu, T var, T& sd) const {
+    if (tid < D) {
+      fmu_z[tid] = fmu;
+      hph_z[tid] = var;
+    } else {
+      sd = Num<T>::sqrt_(clamp_min(var, T(0)));
+      mu_g[own] = fmu;
+      sd_g[own] = sd;
+    }
+  }
+
+  // The warp's first point in round k, and the rows of its PT points:
+  // staged in walking order, or global.
+  __device__ __forceinline__ int first_point(int k) const {
+    return (k * R + rank) * round_pts + w * L.PT;
+  }
+  __device__ __forceinline__ const T* xi_rows(int k, int s0) const {
+    return L.staged ? xi_sh + (k * round_pts + w * L.PT) * N : xi + (size_t)s0 * N;
+  }
+  __device__ __forceinline__ const T* wn_rows(int k, int s0) const {
+    return L.staged ? wn_sh + k * round_pts + w * L.PT : wn + s0;
+  }
+
+  // Link values of the warp's PT points, shared out over the lanes, into the
+  // warp's stash (zero past S).  One CTA a file runs one or two passes of
+  // this loop a step, and a smaller loop body (less code to fetch each step)
+  // beats an unrolled one there; in a cluster the warp takes many rounds and
+  // unrolling pays.
+  __device__ __forceinline__ void link_values(int s0, const T* xi_w) const {
+#pragma unroll(PB == ADF_PB_ONE ? 1 : 4)
+    for (int idx = lane; idx < (N << L.lgPT); idx += 32) {
+      const int pt = idx & (L.PT - 1), n = idx >> L.lgPT;
+      T v = T(0);
+      if (s0 + pt < S) {
+        v = link_fn(mu_g[n] + sd_g[n] * xi_w[pt * N + n], link_exp);
+      }
+      lk_w[n * L.PT + pt] = v;
+    }
+  }
+
+  // Raw amplitudes W link(x) of the lane's PB points x DB subbands, from the
+  // warp's stash (which the caller keeps until a __syncwarp()).
+  __device__ __forceinline__ void amplitudes(T (&a)[PB][DB]) const {
+#pragma unroll
+    for (int p = 0; p < PB; ++p)
+#pragma unroll
+      for (int j = 0; j < DB; ++j) a[p][j] = T(0);
+    const T* lkp = lk_w + grp * PB;
+    const T* wp = Wt + d0;
+#pragma unroll 3
+    for (int n = 0; n < N; ++n) {
+      const Pack<T, PB> lv = *reinterpret_cast<const Pack<T, PB>*>(lkp + n * L.PT);
+      const Pack<T, DB> wv = *reinterpret_cast<const Pack<T, DB>*>(wp + n * L.Dp);
+#pragma unroll
+      for (int p = 0; p < PB; ++p)
+#pragma unroll
+        for (int j = 0; j < DB; ++j) a[p][j] += lv.v[p] * wv.v[j];
+    }
+  }
+
+  // 'sq' amplitudes in place, then every point's s2e - sn2 and mean, summed
+  // over the group's G lanes (a butterfly: all G lanes get the sums).
+  __device__ __forceinline__ void point_sums(T (&a)[PB][DB], const Pack<T, DB>& hz,
+                                             const Pack<T, DB>& mz, T (&se)[PB],
+                                             T (&mean)[PB]) const {
+    if (sq) {
+#pragma unroll
+      for (int p = 0; p < PB; ++p)
+#pragma unroll
+        for (int j = 0; j < DB; ++j) a[p][j] = Num<T>::sqrt_pos(clamp_min(a[p][j], sq_floor));
+    }
+#pragma unroll
+    for (int p = 0; p < PB; ++p) {
+      se[p] = T(0);
+      mean[p] = T(0);
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        se[p] += a[p][j] * a[p][j] * hz.v[j];  // zero beyond D
+        mean[p] += a[p][j] * mz.v[j];
+      }
+    }
+    for (int off = 1; off < L.G; off <<= 1) {
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        se[p] += __shfl_xor_sync(0xffffffffu, se[p], off);
+        mean[p] += __shfl_xor_sync(0xffffffffu, mean[p], off);
+      }
+    }
+  }
+
+  // A point's s2e, residual and log-normaliser.
+  __device__ __forceinline__ void scalars(T yk, T se_, T mean_, T& rs, T& inv, T& ln) const {
+    const T s2e = sn2 + se_;
+    const T resid = yk - mean_;
+    inv = T(1) / s2e;
+    rs = resid * inv;
+    ln = T(-0.5) * (resid * rs + Num<T>::log_(s2e) + T(LOG2PI));
+  }
+
+  // exp(ln - m) for a point that counts; a NaN poisons, -inf adds zero
+  static __device__ __forceinline__ T weight(bool ok, T ln, T m) {
+    return !ok || ln == T(-INFINITY) ? T(0) : Num<T>::exp_(ln - m);
+  }
+
+  // Phases 2 and 3 of a matched step (after every channel thread's publish):
+  // the channel threads get their Z and two totals at the merged shift
+  // m_all.  n_seen (matched steps so far) picks the cluster's buffer.
+  __device__ __forceinline__ void match(T yk, int n_seen, T (&tot)[3], T& m_all,
+                                        AdfProbe& probe) const {
+    __syncthreads();
+    probe.mark(0);
+
+    // ---- 2. this lane's share of the totals, under its own shift -------
+    T acc[NACC], m_run = T(-INFINITY);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = T(0);
+    for (int k = 0;; ++k) {
+      const int s0 = first_point(k);
+      if (s0 >= S) break;  // uniform over the warp
+      const T* xi_w = xi_rows(k, s0);
+      const T* wn_w = wn_rows(k, s0);
+      link_values(s0, xi_w);
+      __syncwarp();
+      probe.mark(1);
+      T a[PB][DB];
+      amplitudes(a);
+      __syncwarp();  // the stash may be overwritten by the next round
+      probe.mark(2);
+      const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
+      const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
+      T se[PB], mean[PB];
+      point_sums(a, hz, mz, se, mean);
+      probe.mark(3);
+      // Per point: s2e, residual, log-normaliser; then the weights at the
+      // lane's shift, raised first if a point of this round exceeds it.
+      T wns[PB], wr[PB], wc[PB], al;
+      if (L.G >= PB) {
+        // lane p of the group does point p and hands its weights round
+        const int pm = g_lane & (PB - 1);
+        T se_m = se[0], mean_m = mean[0];
+#pragma unroll
+        for (int p = 1; p < PB; ++p)
+          if (pm == p) {
+            se_m = se[p];
+            mean_m = mean[p];
+          }
+        const bool ok = s0 + grp * PB + pm < S;
+        T rs, inv, ln;
+        scalars(yk, se_m, mean_m, rs, inv, ln);
+        T mx = ok && ln == ln ? ln : T(-INFINITY);  // a NaN never wins
+#pragma unroll
+        for (int off = 1; off < PB; off <<= 1) {
+          const T o = __shfl_xor_sync(0xffffffffu, mx, off);
+          mx = o > mx ? o : mx;
+        }
+        const T m_new = mx > m_run ? mx : m_run;
+        al = shift_scale(m_run, m_new);
+        m_run = m_new;
+        T wv = T(0);
+        if (ok) wv = wn_w[grp * PB + pm];
+        const T wns_m = wv * weight(ok, ln, m_new);
+        const T wr_m = wns_m * rs, wc_m = wns_m * (rs * rs - inv);
+        const int first = lane & ~(L.G - 1);
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          wns[p] = __shfl_sync(0xffffffffu, wns_m, first + p);
+          wr[p] = __shfl_sync(0xffffffffu, wr_m, first + p);
+          wc[p] = __shfl_sync(0xffffffffu, wc_m, first + p);
+        }
+      } else {
+        // fewer lanes than points (D, N <= ADF_DB * G): every lane does all
+        T rs[PB], inv[PB], ln[PB], m_new = m_run;
+        bool ok[PB];
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          ok[p] = s0 + grp * PB + p < S;
+          scalars(yk, se[p], mean[p], rs[p], inv[p], ln[p]);
+          if (ok[p] && ln[p] > m_new) m_new = ln[p];
+        }
+        al = shift_scale(m_run, m_new);
+        m_run = m_new;
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          T wv = T(0);
+          if (ok[p]) wv = wn_w[grp * PB + p];
+          wns[p] = wv * weight(ok[p], ln[p], m_new);
+          wr[p] = wns[p] * rs[p];
+          wc[p] = wns[p] * (rs[p] * rs[p] - inv[p]);
+        }
+      }
+      probe.mark(4);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] *= al;
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        const int pt = grp * PB + p;
+        if (s0 + pt < S) {
+          acc[0] += wns[p];
+#pragma unroll
+          for (int j = 0; j < DB; ++j) {
+            acc[1 + j] += wr[p] * a[p][j];
+            acc[1 + DB + j] += wc[p] * (a[p][j] * a[p][j]);
+            const T x = d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
+            // the unit point's first two weighted moments; the channel
+            // thread scales them to G1, G2 (rg and 1 / s2_g factor out)
+            acc[1 + 2 * DB + j] += wns[p] * x;
+            acc[1 + 3 * DB + j] += wns[p] * (x * x);
+          }
+        }
+      }
+      probe.mark(5);
+    }
+    // ---- 3. merge: groups of a warp, warps of a CTA, CTAs of a cluster --
+    {  // the warp's shift first, one rescale, then plain butterfly sums
+      T mw = m_run;
+      for (int off = L.G; off < 32; off <<= 1) {
+        const T o = __shfl_xor_sync(0xffffffffu, mw, off);
+        mw = o > mw ? o : mw;
+      }
+      const T sc = shift_scale(m_run, mw);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] *= sc;
+      for (int off = L.G; off < 32; off <<= 1) {
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+      }
+      m_run = mw;
+    }
+    if (grp == 0) {  // group 0 holds the warp's record
+      T* pr = part + w * L.rec;
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) pr[g_lane * NACC + i] = acc[i];
+      if (g_lane == 0) pr[mslot] = m_run;
+    }
+    __syncthreads();
+    if (R > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      T* mine = cta_rec + (n_seen & 1) * L.rec;
+      const auto warp_rec = [&](int p) { return part + p * L.rec; };
+      for (int idx = tid; idx < mslot; idx += NT) {
+        const int one[1] = {idx};
+        T v[1];
+        const T mw = merge_partials<T, 1>(NW, warp_rec, mslot, one, v);
+        mine[idx] = v[0];
+        if (idx == 0) mine[mslot] = mw;
+      }
+      probe.mark(6);
+      cluster.sync();
+      probe.mark(7);
+      if (chan)
+        m_all = merge_partials<T, 3>(
+            R, [&](int p) { return cluster.map_shared_rank(mine, p); }, mslot, slots, tot);
+    } else {
+      probe.mark(6);
+      if (chan)
+        m_all = merge_partials<T, 3>(
+            NW, [&](int p) { return part + p * L.rec; }, mslot, slots, tot);
+    }
+  }
+
+  // The reverse of match for one CTA (R = 1), after every channel thread's
+  // publish of the step: the cotangents of the totals to those of the
+  // channels' marginals, one pass over the points.  gZ is Z's cotangent; g4
+  // [4][Dp] in shared memory holds those of A1, A2 (subbands) and of the unit
+  // point's two weighted moments (modulators), zero beyond D and N.  Every
+  // point is re-evaluated at the merged shift m_all (finite), its weight
+  // exp(ln - m_all) differentiated with the shift held constant.  Adds this
+  // lane's share of sn2's cotangent to gsn2 (group lane 0) and of W's to
+  // wacc[(n DB + j) NT + tid] (float64); lkbar_w [N][PT] is the warp's stash
+  // for the link values' cotangents.  Returns in the channel threads g_mu (the
+  // mean's cotangent) and g_s (a subband's variance's, a modulator's sd's).
+  __device__ __forceinline__ void match_vjp(T yk, T m_all, T gZ, const T* g4, T* lkbar_w,
+                                            double* wacc, double& gsn2, T& g_mu, T& g_s) const {
+    constexpr int NV = 4 * DB;  // a lane's sums: mu_z, s2_z, mu_g, sd of its DB channels
+    const int PT = L.PT, Dp = L.Dp;
+    T acc[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = T(0);
+    const Pack<T, DB> gA1 = *reinterpret_cast<const Pack<T, DB>*>(g4 + d0);
+    const Pack<T, DB> gA2 = *reinterpret_cast<const Pack<T, DB>*>(g4 + Dp + d0);
+    const Pack<T, DB> gX1 = *reinterpret_cast<const Pack<T, DB>*>(g4 + 2 * Dp + d0);
+    const Pack<T, DB> gX2 = *reinterpret_cast<const Pack<T, DB>*>(g4 + 3 * Dp + d0);
+    const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
+    const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
+    for (int k = 0;; ++k) {
+      const int s0 = first_point(k);
+      if (s0 >= S) break;  // uniform over the warp
+      const T* xi_w = xi_rows(k, s0);
+      const T* wn_w = wn_rows(k, s0);
+      link_values(s0, xi_w);
+      __syncwarp();
+      T a[PB][DB], ar[PB][DB], se[PB], mean[PB];
+      amplitudes(a);
+#pragma unroll
+      for (int p = 0; p < PB; ++p)
+#pragma unroll
+        for (int j = 0; j < DB; ++j) ar[p][j] = a[p][j];
+      point_sums(a, hz, mz, se, mean);
+      // every lane: its PB points' weights and scalars, the unit points, and
+      // its share of the sums the point's cotangents need
+      T wns[PB], rs[PB], inv[PB], c2[PB], x[PB][DB], u[3][PB];
+      bool ok[PB];
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        const int pt = grp * PB + p;
+        ok[p] = s0 + pt < S;
+        T ln;
+        scalars(yk, se[p], mean[p], rs[p], inv[p], ln);
+        wns[p] = ok[p] ? wn_w[pt] * weight(true, ln, m_all) : T(0);
+        c2[p] = rs[p] * rs[p] - inv[p];
+        u[0][p] = u[1][p] = u[2][p] = T(0);
+#pragma unroll
+        for (int j = 0; j < DB; ++j) {
+          x[p][j] = ok[p] && d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
+          u[0][p] += gA1.v[j] * a[p][j];
+          u[1][p] += gA2.v[j] * (a[p][j] * a[p][j]);
+          u[2][p] += gX1.v[j] * x[p][j] + gX2.v[j] * (x[p][j] * x[p][j]);
+        }
+      }
+      for (int off = 1; off < L.G; off <<= 1) {
+#pragma unroll
+        for (int p = 0; p < PB; ++p)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) u[q][p] += __shfl_xor_sync(0xffffffffu, u[q][p], off);
+      }
+      // per point: the cotangents of its weight, residual and s2e, then of
+      // its amplitudes (ar holds them after this, on the raw scale)
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        const T g_wns = gZ + rs[p] * u[0][p] + c2[p] * u[1][p] + u[2][p];
+        const T g_rs = wns[p] * (u[0][p] + T(2) * rs[p] * u[1][p]);
+        const T g_inv = -wns[p] * u[1][p];
+        const T g_ln = g_wns * wns[p];
+        const T g_resid = g_rs * inv[p] - g_ln * rs[p];
+        const T g_s2e = T(0.5) * g_ln * c2[p] - g_rs * rs[p] * inv[p] - g_inv * inv[p] * inv[p];
+        if (g_lane == 0 && ok[p]) gsn2 += (double)g_s2e;
+        const T wr = wns[p] * rs[p], wc = T(2) * wns[p] * c2[p];
+#pragma unroll
+        for (int j = 0; j < DB; ++j) {
+          const T aj = a[p][j];
+          T ga = wr * gA1.v[j] + wc * gA2.v[j] * aj - g_resid * mz.v[j] + T(2) * g_s2e * aj * hz.v[j];
+          acc[j] -= g_resid * aj;
+          acc[DB + j] += g_s2e * (aj * aj);
+          if (sq) ga = ar[p][j] >= sq_floor ? T(0.5) * ga / aj : T(0);
+          ar[p][j] = ga;
+        }
+      }
+      // W's cotangent (float64, this lane's subbands) and the link values'
+      // (summed over the group, kept by the lane that owns the modulator)
+      const T* lkp = lk_w + grp * PB;
+      for (int n = 0; n < N; ++n) {
+        T gl[PB];
+#pragma unroll
+        for (int p = 0; p < PB; ++p) gl[p] = T(0);
+#pragma unroll
+        for (int j = 0; j < DB; ++j) {
+          const T wv = Wt[n * Dp + d0 + j];
+          double s = 0.0;
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            s += (double)(ar[p][j] * lkp[n * PT + p]);
+            gl[p] += ar[p][j] * wv;
+          }
+          if (d0 + j < D) wacc[(size_t)(n * DB + j) * NT + tid] += s;
+        }
+        for (int off = 1; off < L.G; off <<= 1) {
+#pragma unroll
+          for (int p = 0; p < PB; ++p) gl[p] += __shfl_xor_sync(0xffffffffu, gl[p], off);
+        }
+        if (g_lane == n / DB) {
+#pragma unroll
+          for (int p = 0; p < PB; ++p) lkbar_w[n * PT + grp * PB + p] = gl[p];
+        }
+      }
+      __syncwarp();
+      // the modulators' x = mu_g + sd xi: their mean's and sd's cotangents
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        const int n = d0 + j;
+        if (n < N) {
+#pragma unroll
+          for (int p = 0; p < PB; ++p) {
+            if (!ok[p]) continue;
+            const int pt = grp * PB + p;
+            const T lk = lk_w[n * PT + pt];
+            const T dlk = link_exp ? lk : T(1) / (T(1) + Num<T>::exp_(-(mu_g[n] + sd_g[n] * x[p][j])));
+            const T gx = lkbar_w[n * PT + pt] * dlk;
+            acc[2 * DB + j] += gx;
+            acc[3 * DB + j] += gx * x[p][j];
+          }
+        }
+      }
+      __syncwarp();  // the stashes may be overwritten by the next round
+    }
+    // ---- merge the lanes' sums: groups of a warp, then warps (fixed order)
+    for (int off = L.G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    }
+    if (grp == 0) {
+      T* pr = part + w * L.rec;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) pr[g_lane * NV + i] = acc[i];
+    }
+    __syncthreads();
+    g_mu = g_s = T(0);
+    if (chan) {
+      const int base = (own / DB) * NV + (tid < D ? 0 : 2 * DB) + own % DB;
+      for (int p = 0; p < NW; ++p) {
+        g_mu += part[p * L.rec + base];
+        g_s += part[p * L.rec + base + DB];
+      }
+    }
+  }
+};
+
+// The sweep over one file b = blockIdx.x / R by its cluster of R CTAs, the
+// recursion Rec carried between the moment matches.
 template <typename T, int BS, int PB, typename Rec>
 __device__ __forceinline__ void adf_sweep_pb(const AdfCore<T>& core, const typename Rec::Args& ra,
                                              const int R) {
-  constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
   const T* __restrict__ y = core.y;
   const T* __restrict__ obs = core.obs;
-  const T* __restrict__ xi = core.xi;
-  const T* __restrict__ wn = core.wn;
-  const int n_steps = core.n_steps, BF = core.BF, D = core.D, N = core.N, S = core.S;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = R > 1 ? (int)cluster.block_rank() : 0;
+  const int n_steps = core.n_steps, BF = core.BF, D = core.D;
   const int b = blockIdx.x / R;  // the file
-  const int C = D + N;
-  const bool link_exp = core.link_exp != 0, sq = core.sq != 0;
-  const T sq_floor = core.sq_floor;
-  const AdfLayout L = adf_layout(D, N, S, R, sizeof(T));
-  const int G = L.G, PT = L.PT, Dp = L.Dp;
-  const int g_lane = lane & (G - 1), grp = lane >> L.lg;
-  const int d0 = g_lane * DB;  // this lane's subbands and modulators
-
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);
-  T* fmu_z = sh + L.fmu;   // [Dp] subband means, zero beyond D
-  T* hph_z = sh + L.hph;   // [Dp] subband variances, zero beyond D
-  T* mu_g = sh + L.mug;    // [Dp] modulator means, zero beyond N
-  T* sd_g = sh + L.sdg;    // [Dp] sqrt(max(s2_g, 0)), zero beyond N
-  T* Wt = sh + L.Wt;       // [N][Dp] W transposed, zero beyond D
-  T* lk_w = sh + L.lk + w * N * PT;  // [N][PT] this warp's link values
-  T* part = sh + L.part;   // [NW][rec] the warps' partial records
-  T* cta_rec = sh + L.cta; // [2][rec] this CTA's merged record, double-buffered
-  const T* xi_sh = sh + L.xi;  // [nloc][N] this CTA's sigma points, in walking order
-  const T* wn_sh = sh + L.wn;  // [nloc]
-
-  // ---- once per launch: padding, W, the CTA's own sigma points ------------
-  const int round_pts = L.GC * PB;  // points a CTA takes per round
-  for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
-  const T* W = core.W + (size_t)b * D * N;
-  for (int i = tid; i < N * Dp; i += NT) {
-    const int n = i / Dp, d = i - n * Dp;
-    Wt[i] = d < D ? W[d * N + n] : T(0);
-  }
-  if (L.staged) {
-    T* xs = sh + L.xi;
-    T* ws = sh + L.wn;
-    for (int loc = tid; loc < L.nloc; loc += NT) {
-      const int kr = loc / round_pts;
-      const int s = (kr * R + rank) * round_pts + (loc - kr * round_pts);
-      ws[loc] = s < S ? wn[s] : T(0);
-      for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
-    }
-  }
-  const T sn2 = core.sn2[b];
-
-  // Channel state (threads tid < C only; channel tid of file b).
-  const bool chan = tid < C;
-  Rec rec(ra, core, b, tid, chan, sh + L.total);
-  // Where this channel's two totals sit in a record (Z is at 0).
-  const int own = tid < D ? tid : tid - D;
-  const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
-  const int slots[3] = {0, k1, k1 + DB};
-  const int mslot = G * NACC;
+  const AdfStep<T, PB> st(core, b, R, reinterpret_cast<T*>(smem_raw));
+  const int tid = st.tid;
+  const bool chan = st.chan;
+  Rec rec(ra, core, b, tid, chan, st.sh + st.L.total);
   T y_next = y[b], obs_next = obs[b];
   int n_seen = 0;  // observed steps so far: the parity picks the cluster buffer
   __syncthreads();
-
-#ifdef NSGP_CLOCK_PROBE
-  const bool probing = tid == 0 && blockIdx.x == 0 && core.cyc != nullptr;
-  long long cycv[ADF_PROBE_PHASES] = {};
-  long long c_last = clock64();
-#endif
+  AdfProbe probe(tid == 0 && blockIdx.x == 0 && core.cyc != nullptr);
 
   for (int t = 0; t < n_steps; ++t) {
     const T yk = y_next;
@@ -449,233 +907,13 @@ __device__ __forceinline__ void adf_sweep_pb(const AdfCore<T>& core, const typen
     T sd = T(0);  // a modulator's sqrt(max(s2_g, 0))
     if (chan) {
       rec.marginal(t, fmu, var);
-      if (observed) {
-        if (tid < D) {
-          fmu_z[tid] = fmu;
-          hph_z[tid] = var;
-        } else {
-          sd = Num<T>::sqrt_(clamp_min(var, T(0)));
-          mu_g[own] = fmu;
-          sd_g[own] = sd;
-        }
-      }
+      if (observed) st.publish(fmu, var, sd);
     }
 
+    // ---- 2, 3. the totals of the sigma points ------------------------------
     T tot[3] = {T(0), T(0), T(0)}, m_all = T(0);
     if (observed) {
-      __syncthreads();
-      ADF_PROBE_MARK(0);
-
-      // ---- 2. this lane's share of the totals, under its own shift -------
-      T acc[NACC], m_run = T(-INFINITY);
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = T(0);
-      for (int k = 0;; ++k) {
-        const int loc0 = k * round_pts + w * PT;           // in the CTA's walking order
-        const int s0 = (k * R + rank) * round_pts + w * PT;  // the warp's first point
-        if (s0 >= S) break;                                  // uniform over the warp
-        // rows of the warp's PT points: staged in walking order, or global
-        const T* xi_w = L.staged ? xi_sh + loc0 * N : xi + (size_t)s0 * N;
-        const T* wn_w = L.staged ? wn_sh + loc0 : wn + s0;
-        // link values of the warp's PT points, shared out over the lanes
-        // One CTA a file runs one or two passes of this loop a step, and a
-        // smaller loop body (less code to fetch each step) beats an unrolled
-        // one there; in a cluster the warp takes many rounds and unrolling pays.
-#pragma unroll(PB == ADF_PB_ONE ? 1 : 4)
-        for (int idx = lane; idx < (N << L.lgPT); idx += 32) {
-          const int pt = idx & (PT - 1), n = idx >> L.lgPT;
-          T v = T(0);
-          if (s0 + pt < S) {
-            v = link_fn(mu_g[n] + sd_g[n] * xi_w[pt * N + n], link_exp);
-          }
-          lk_w[n * PT + pt] = v;
-        }
-        __syncwarp();
-        ADF_PROBE_MARK(1);
-        // amplitudes of PB points x DB subbands
-        T a[PB][DB];
-#pragma unroll
-        for (int p = 0; p < PB; ++p)
-#pragma unroll
-          for (int j = 0; j < DB; ++j) a[p][j] = T(0);
-        {
-          const T* lkp = lk_w + grp * PB;
-          const T* wp = Wt + d0;
-#pragma unroll 3
-          for (int n = 0; n < N; ++n) {
-            const Pack<T, PB> lv = *reinterpret_cast<const Pack<T, PB>*>(lkp + n * PT);
-            const Pack<T, DB> wv = *reinterpret_cast<const Pack<T, DB>*>(wp + n * Dp);
-#pragma unroll
-            for (int p = 0; p < PB; ++p)
-#pragma unroll
-              for (int j = 0; j < DB; ++j) a[p][j] += lv.v[p] * wv.v[j];
-          }
-        }
-        __syncwarp();  // the stash may be overwritten by the next round
-        ADF_PROBE_MARK(2);
-        const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
-        const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
-        if (sq) {
-#pragma unroll
-          for (int p = 0; p < PB; ++p)
-#pragma unroll
-            for (int j = 0; j < DB; ++j)
-              a[p][j] = Num<T>::sqrt_pos(clamp_min(a[p][j], sq_floor));
-        }
-        T se[PB], mean[PB];
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          se[p] = T(0);
-          mean[p] = T(0);
-#pragma unroll
-          for (int j = 0; j < DB; ++j) {
-            se[p] += a[p][j] * a[p][j] * hz.v[j];  // zero beyond D
-            mean[p] += a[p][j] * mz.v[j];
-          }
-        }
-        for (int off = 1; off < G; off <<= 1) {  // butterfly: all G lanes get the sums
-#pragma unroll
-          for (int p = 0; p < PB; ++p) {
-            se[p] += __shfl_xor_sync(0xffffffffu, se[p], off);
-            mean[p] += __shfl_xor_sync(0xffffffffu, mean[p], off);
-          }
-        }
-        ADF_PROBE_MARK(3);
-        // Per point: s2e, residual, log-normaliser; then the weights at the
-        // lane's shift, raised first if a point of this round exceeds it.
-        const auto scalars = [&](T se_, T mean_, T& rs, T& inv, T& ln) {
-          const T s2e = sn2 + se_;
-          const T resid = yk - mean_;
-          inv = T(1) / s2e;
-          rs = resid * inv;
-          ln = T(-0.5) * (resid * rs + Num<T>::log_(s2e) + T(LOG2PI));
-        };
-        // exp(ln - m) for a point that counts; a NaN poisons, -inf adds zero
-        const auto weight = [&](bool ok, T ln, T m) {
-          return !ok || ln == T(-INFINITY) ? T(0) : Num<T>::exp_(ln - m);
-        };
-        T wns[PB], wr[PB], wc[PB], al;
-        if (G >= PB) {
-          // lane p of the group does point p and hands its weights round
-          const int pm = g_lane & (PB - 1);
-          T se_m = se[0], mean_m = mean[0];
-#pragma unroll
-          for (int p = 1; p < PB; ++p)
-            if (pm == p) {
-              se_m = se[p];
-              mean_m = mean[p];
-            }
-          const bool ok = s0 + grp * PB + pm < S;
-          T rs, inv, ln;
-          scalars(se_m, mean_m, rs, inv, ln);
-          T mx = ok && ln == ln ? ln : T(-INFINITY);  // a NaN never wins
-#pragma unroll
-          for (int off = 1; off < PB; off <<= 1) {
-            const T o = __shfl_xor_sync(0xffffffffu, mx, off);
-            mx = o > mx ? o : mx;
-          }
-          const T m_new = mx > m_run ? mx : m_run;
-          al = shift_scale(m_run, m_new);
-          m_run = m_new;
-          T wv = T(0);
-          if (ok) wv = wn_w[grp * PB + pm];
-          const T wns_m = wv * weight(ok, ln, m_new);
-          const T wr_m = wns_m * rs, wc_m = wns_m * (rs * rs - inv);
-          const int first = lane & ~(G - 1);
-#pragma unroll
-          for (int p = 0; p < PB; ++p) {
-            wns[p] = __shfl_sync(0xffffffffu, wns_m, first + p);
-            wr[p] = __shfl_sync(0xffffffffu, wr_m, first + p);
-            wc[p] = __shfl_sync(0xffffffffu, wc_m, first + p);
-          }
-        } else {
-          // fewer lanes than points (D, N <= ADF_DB * G): every lane does all
-          T rs[PB], inv[PB], ln[PB], m_new = m_run;
-          bool ok[PB];
-#pragma unroll
-          for (int p = 0; p < PB; ++p) {
-            ok[p] = s0 + grp * PB + p < S;
-            scalars(se[p], mean[p], rs[p], inv[p], ln[p]);
-            if (ok[p] && ln[p] > m_new) m_new = ln[p];
-          }
-          al = shift_scale(m_run, m_new);
-          m_run = m_new;
-#pragma unroll
-          for (int p = 0; p < PB; ++p) {
-            T wv = T(0);
-            if (ok[p]) wv = wn_w[grp * PB + p];
-            wns[p] = wv * weight(ok[p], ln[p], m_new);
-            wr[p] = wns[p] * rs[p];
-            wc[p] = wns[p] * (rs[p] * rs[p] - inv[p]);
-          }
-        }
-        ADF_PROBE_MARK(4);
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] *= al;
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          const int pt = grp * PB + p;
-          if (s0 + pt < S) {
-            acc[0] += wns[p];
-#pragma unroll
-            for (int j = 0; j < DB; ++j) {
-              acc[1 + j] += wr[p] * a[p][j];
-              acc[1 + DB + j] += wc[p] * (a[p][j] * a[p][j]);
-              const T x = d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
-              // the unit point's first two weighted moments; the channel
-              // thread scales them to G1, G2 (rg and 1 / s2_g factor out)
-              acc[1 + 2 * DB + j] += wns[p] * x;
-              acc[1 + 3 * DB + j] += wns[p] * (x * x);
-            }
-          }
-        }
-        ADF_PROBE_MARK(5);
-      }
-      // ---- 3. merge: groups of a warp, warps of a CTA, CTAs of a cluster --
-      {  // the warp's shift first, one rescale, then plain butterfly sums
-        T mw = m_run;
-        for (int off = G; off < 32; off <<= 1) {
-          const T o = __shfl_xor_sync(0xffffffffu, mw, off);
-          mw = o > mw ? o : mw;
-        }
-        const T sc = shift_scale(m_run, mw);
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] *= sc;
-        for (int off = G; off < 32; off <<= 1) {
-#pragma unroll
-          for (int i = 0; i < NACC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-        }
-        m_run = mw;
-      }
-      if (grp == 0) {  // group 0 holds the warp's record
-        T* pr = part + w * L.rec;
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) pr[g_lane * NACC + i] = acc[i];
-        if (g_lane == 0) pr[mslot] = m_run;
-      }
-      __syncthreads();
-      if (R > 1) {
-        T* mine = cta_rec + (n_seen & 1) * L.rec;
-        const auto warp_rec = [&](int p) { return part + p * L.rec; };
-        for (int idx = tid; idx < mslot; idx += NT) {
-          const int one[1] = {idx};
-          T v[1];
-          const T mw = merge_partials<T, 1>(NW, warp_rec, mslot, one, v);
-          mine[idx] = v[0];
-          if (idx == 0) mine[mslot] = mw;
-        }
-        ADF_PROBE_MARK(6);
-        cluster.sync();
-        ADF_PROBE_MARK(7);
-        if (chan)
-          m_all = merge_partials<T, 3>(
-              R, [&](int p) { return cluster.map_shared_rank(mine, p); }, mslot, slots, tot);
-      } else {
-        ADF_PROBE_MARK(6);
-        if (chan)
-          m_all = merge_partials<T, 3>(
-              NW, [&](int p) { return part + p * L.rec; }, mslot, slots, tot);
-      }
+      st.match(yk, n_seen, tot, m_all, probe);
       ++n_seen;
     }
 
@@ -683,18 +921,13 @@ __device__ __forceinline__ void adf_sweep_pb(const AdfCore<T>& core, const typen
     if (chan) {
       T lZk = T(0), dl = T(0), d2 = T(0);
       if (observed) adf_derivatives<T>(tot, m_all, tid >= D, var, sd, core.log_floor, lZk, dl, d2);
-      rec.advance(t, observed, lZk, dl, d2, fmu, var, rank == 0);
+      rec.advance(t, observed, lZk, dl, d2, fmu, var, st.rank == 0);
     }
-    ADF_PROBE_MARK(8);
+    probe.mark(8);
   }
   // No CTA may exit while another can still read its shared memory.
-  if (R > 1) cluster.sync();
-#ifdef NSGP_CLOCK_PROBE
-  if (probing) {
-    for (int i = 0; i < ADF_PROBE_PHASES; ++i) core.cyc[i] = cycv[i];
-    core.cyc[ADF_PROBE_PHASES] = n_seen;
-  }
-#endif
+  if (R > 1) cg::this_cluster().sync();
+  probe.write(core.cyc, n_seen);
 }
 
 template <typename T, int BS, typename Rec>

@@ -28,8 +28,10 @@ Two backends:
   kernel launch; on CPU tensors the same passes run as their plain torch
   versions.
 
-``ep_energy`` is the energy mode: the sequential engine whatever the backend,
-differentiable by autograd with respect to every ``GTNMFParams`` leaf.
+``ep_energy`` is the energy mode, whatever the backend: sweep 1 through
+``fused_kalman.FusedADF`` (K3 forward, its adjoint K7 backward; their plain
+twins on the CPU), later sweeps the sequential engine under autograd;
+differentiable with respect to every ``GTNMFParams`` leaf.
 
 Sharding over a mesh (``parallel.mesh``; the axis names resolve against the
 ambient mesh of ``parallel.mesh.set_mesh``).  Every rank returns the same
@@ -285,7 +287,7 @@ def ep_infer(
                 ms, Ps = fused_kalman.smoother_fused(ssm_c, ms_f[:, c0:c1], Ps_f[:, c0:c1])
             else:
                 fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
-                                                  match_mask=None, store=True)
+                                                  match_mask=None)
                 ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
                                              if chan else fr)
             nlZ[0] = -torch.sum(lZ)
@@ -298,7 +300,7 @@ def ep_infer(
             # at the very last step (itt == 1 || k == numel(yall) branch);
             # that couples the channels, so this pass is replicated.
             fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
-                                                  match_mask=last_only, store=True)
+                                                  match_mask=last_only)
             lZ_last = lZ_fwd[-1]
             ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
                                          if chan else fr)
@@ -355,29 +357,32 @@ def ep_energy(
     (gf_ep_modulator_nmf.m:355-533).  A 0-d tensor whose graph reaches every
     leaf of ``params``: differentiable by autograd, which the reference lacks
     (it returns zero gradients and relies on fminunc finite differences).
-    Always the sequential engine, whatever ``config.backend`` says, with the
-    reference's last-site bookkeeping: re-sites at ``config.damp(itt)``, the
-    last step never re-sited backward, and later forward passes re-matching
-    only the last site.  Under ``config.channel_axis`` each rank smooths its
-    channels and the marginals are gathered with their gradient (every rank
-    returns the same energy; its backward pass exchanges too).
+    Sweep 1 is ``fused_kalman.FusedADF`` whatever ``config.backend`` says:
+    K3 forward and its adjoint K7 backward on the card, their plain twins on
+    the CPU.  Later sweeps are the sequential engine under autograd, with
+    the reference's last-site bookkeeping: re-sites at ``config.damp(itt)``,
+    the last step never re-sited backward, and later forward passes
+    re-matching only the last site.  Under ``config.channel_axis`` sweep 1
+    stays replicated, each rank smooths its channels and the marginals are
+    gathered with their gradient (every rank returns the same energy; its
+    backward pass exchanges too).
     """
     _check_config(config)
     chan = mesh_axis(config.channel_axis)
     full_fp32()
     dev, params, y, mask = place_inputs(params, y, mask, device)
     ssm = model.build_ssm(params)
-    dtype = ssm.A.dtype
     T = y.shape[0]
     C, bs = ssm.num_channels, ssm.block_size
-    sites = kalman.init_sites(T, C, dtype, dev)
     mom_fn = _mom_point(model, params)
     c0, c1 = chan.split(C) if chan else (0, C)
     ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
 
-    # Sweep 1: ADF; this is the lZ if ep_itts == 1.
-    fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(0),
-                                      match_mask=None, store=config.ep_itts > 1)
+    # Sweep 1: ADF, K3 forward and K7 backward (their twins on the CPU);
+    # this is the lZ if ep_itts == 1.
+    ms1, Ps1, lZ, sites = fused_kalman.adf_filter_fused(model.moment_params(), ssm, params.W,
+                                                        params.lik, y, mask, config.damp(0))
+    fr = PackedTrajectory(ms1.reshape(T, -1), Ps1.reshape(T, -1))
     lZ_last = lZ[-1]  # forward-pass lZ at the final step (ref :413)
     last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
     last_only[-1] = True
@@ -394,6 +399,6 @@ def ep_energy(
         lZ = torch.cat([lZ[:-1], lZ_last[None]])
         if itt < config.ep_itts - 1:
             fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(itt),
-                                                  match_mask=last_only, store=True)
+                                                  match_mask=last_only)
             lZ_last = lZ_fwd[-1]
     return -torch.sum(lZ)

@@ -43,12 +43,15 @@ _SIGNATURES = {
     "nsgp_adf_max_width": ([], _i),
     "nsgp_adf_cluster": ([_i], _i),
     "nsgp_adf_probe_phases": ([], _i),
+    "nsgp_adf_vjp_scratch": ([_i, _i, _i], ctypes.c_longlong),
     "nsgp_fused_adf_mb_f32": ([_i] + [_p] * 10 + [_d, _d] + [_i] * 7 + [_p] * 7, _i),
     "nsgp_fused_adf_mb_f64": ([_i] + [_p] * 10 + [_d, _d] + [_i] * 7 + [_p] * 7, _i),
     "nsgp_fused_ihgp_adf_f32": ([_i] + [_p] * 14 + [_d] * 4 + [_i] * 7 + [_p] * 6, _i),
     "nsgp_fused_ihgp_adf_f64": ([_i] + [_p] * 14 + [_d] * 4 + [_i] * 7 + [_p] * 6, _i),
     "nsgp_fused_ihgp_smooth_f32": ([_i] + [_p] * 5 + [_i] * 3 + [_p], _i),
     "nsgp_fused_ihgp_smooth_f64": ([_i] + [_p] * 5 + [_i] * 3 + [_p], _i),
+    "nsgp_fused_adf_vjp_f32": ([_i] + [_p] * 17 + [_d, _d] + [_i] * 6 + [_p] * 8, _i),
+    "nsgp_fused_adf_vjp_f64": ([_i] + [_p] * 17 + [_d, _d] + [_i] * 6 + [_p] * 8, _i),
 }
 
 

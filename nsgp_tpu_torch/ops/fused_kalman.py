@@ -1,17 +1,23 @@
 """Fused filter / smoother / ADF passes: CUDA kernels and their plain twins.
 
-Port of ``nsgp_tpu/ops/pallas_kalman.py``.  Four kernels, each a whole pass
-over T (``csrc/fused_kalman.cuh``, ``csrc/fused_adf.cuh``,
-``csrc/fused_adf_mb.cuh``; K3 and K4 share their step, ``csrc/adf_step.cuh``).
-K3 and K4 are one launch each; K1 and K2, whose steps compose, run as three
-blocked parallel-in-time launches over chunks of T (``chunk_length``), of
-which ``fused_*_blocked_plain`` are the plain versions:
+Port of ``nsgp_tpu/ops/pallas_kalman.py``, and of the transposed scan that
+``jax.value_and_grad`` derives from ``nsgp_tpu/ops/kalman.py:adf_filter``.
+Five kernels, each a whole pass over T (``csrc/fused_kalman.cuh``,
+``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``, ``csrc/fused_adf_vjp.cuh``;
+K3, K4 and K7 share their step, ``csrc/adf_step.cuh``).  K3, K4 and K7 are
+one launch each; K1 and K2, whose steps compose, run as three blocked
+parallel-in-time launches over chunks of T (``chunk_length``), of which
+``fused_*_blocked_plain`` are the plain versions:
 
     fused_fwd     (K1)  forward filter with fixed sites    <- _fwd_kernel
     fused_bwd     (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
     fused_adf     (K3)  EP sweep 1: filter + in-step ADF   <- _adf_kernel
     fused_adf_mb  (K4)  K3 over BF files, a cluster of     <- _adf_kernel_mb
                         CTAs a file, sigma points streamed
+    fused_adf_vjp (K7)  K3's sweep in reverse: cotangents  <- the transpose
+                        of its outputs to its parameters'     of adf_filter
+
+``FusedADF`` binds K3 and K7 as one ``torch.autograd.Function``.
 
 Each wrapper does exactly one of two things: on CPU tensors it runs its
 plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
@@ -404,6 +410,174 @@ def fused_adf_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, varian
     return ms, Ps, lZ, tts, tns
 
 
+_DLINK = {  # d link / dx from x and link(x)
+    "softplus": lambda x, lk: torch.sigmoid(x),
+    "exp": lambda x, lk: lk,
+}
+
+
+def fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_lZ, g_tt,
+                        g_tn, *, damp, link, variant, z_floor):
+    """K7 reference: the vector-Jacobian product of ``fused_adf_plain``.
+
+    Inputs as ``fused_adf_plain``'s, its filtered ms (T, C, bs), Ps (T, C,
+    bs, bs), and the cotangents of its five outputs (None = zero).  Returns
+    the cotangents of A, Q, Pinf (C, bs, bs), H (C, bs), W (D, N) and sn2 ().
+
+    A reverse loop over t = T-1 .. 0 in the kernel's step order: step t is
+    re-derived from the stored (ms, Ps)[t-1] ((0, Pinf) at t = 0), then run
+    backwards through the update, the damped site, the derivatives of log Z,
+    the cubature totals and their sigma points (one pass over the points),
+    the observation and the prediction.  The max shift is a constant (it
+    carries no gradient), clamps pass the cotangent where they do not bind
+    (torch's ``>=`` rule), and the parameter cotangents are summed over T in
+    float64 whatever the dtype.
+    """
+    T = y.shape[0]
+    C, bs = H.shape
+    D = W.shape[0]
+    dt_, dev = A.dtype, A.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    lk_fn, dlk_fn = LINKS[link], _DLINK[link]
+    sq = variant == "sq"
+    At = A.transpose(-1, -2)
+    tiny = torch.finfo(dt_).tiny
+    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+    observed = (obs > 0).tolist()
+    xi2 = xi * xi
+    gA = torch.zeros((C, bs, bs), **f64)
+    gQ = torch.zeros((C, bs, bs), **f64)
+    gH = torch.zeros((C, bs), **f64)
+    gW = torch.zeros(W.shape, **f64)
+    gsn2 = torch.zeros((), **f64)
+    m_bar = torch.zeros((C, bs), dtype=dt_, device=dev)
+    P_bar = torch.zeros((C, bs, bs), dtype=dt_, device=dev)
+    zero_C = torch.zeros((C,), dtype=dt_, device=dev)
+    for t in range(T - 1, -1, -1):
+        if g_ms is not None:
+            m_bar = m_bar + g_ms[t]
+        if g_Ps is not None:
+            P_bar = P_bar + g_Ps[t]
+        m0, P0 = (ms[t - 1], Ps[t - 1]) if t > 0 else (torch.zeros_like(m_bar), Pinf)
+        AP = A @ P0
+        mp, Pp = (A @ m0[..., None])[..., 0], AP @ At + Q
+        fmu, PH, var = _observe(H, mp, Pp)
+        g_tt_t = zero_C if g_tt is None else g_tt[t]
+        g_tn_t = zero_C if g_tn is None else g_tn[t]
+        if observed[t]:
+            # ---- re-derive the moment match of step t (as fused_adf_plain) --
+            mu_z, mu_g, s2_z, s2_g = fmu[:D], fmu[D:], var[:D], var[D:]
+            sd = torch.sqrt(torch.clamp_min(s2_g, 0.0))
+            xn = mu_g + sd * xi  # (S, N)
+            lk = lk_fn(xn)
+            a_raw = lk @ W.T  # (S, D)
+            a = torch.sqrt(torch.clamp_min(a_raw, 1e-12)) if sq else a_raw
+            a2 = a * a
+            s2e = sn2 + a2 @ s2_z
+            resid = y[t] - a @ mu_z
+            inv = 1.0 / s2e
+            rs = resid * inv
+            log_norm = -0.5 * (resid * rs + torch.log(s2e) + _LOG2PI)
+            lmax = log_norm.max()
+            lmax = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
+            wns = wn * torch.exp(log_norm - lmax)
+            Z = wns.sum()
+            c2 = rs * rs - inv
+            X1, X2 = wns @ xi, wns @ xi2  # the unit point's weighted moments
+            is2 = 1.0 / s2_g
+            rg = sd * is2
+            S1 = torch.cat([(wns * rs) @ a, rg * X1])
+            S2 = torch.cat([(wns * c2) @ a2, rg * rg * X2 - is2 * Z])
+            Z0 = torch.clamp_min(Z, tiny)
+            lZ_raw = lmax + torch.log(Z0)
+            lZk = torch.clamp_min(lZ_raw, log_floor)
+            e = torch.exp(lZ_raw - lZk)
+            Zi = e / Z0
+            dl = Zi * S1
+            d2 = Zi * S2 - dl * dl
+            denom = 1.0 + d2 * var
+            r = -d2 / denom
+            tt = torch.clamp_min(damp * r, 0.0)
+            tn = damp * ((dl - fmu * d2) / denom)
+        else:
+            tt = tn = zero_C
+        # ---- the update m = mp - PH v, P = Pp - w PH PH' ------------------
+        z = tt * var + 1.0
+        v = (tt * fmu - tn) / z
+        w = tt / z
+        g_mp, g_Pp = m_bar, P_bar
+        g_PH = -v[:, None] * m_bar - w[:, None] * ((P_bar + P_bar.transpose(-1, -2))
+                                                   @ PH[..., None])[..., 0]
+        g_v = -(PH * m_bar).sum(-1)
+        g_w = -(PH[:, :, None] * P_bar * PH[:, None, :]).sum((-1, -2))
+        g_z = -(g_v * v + g_w * w) / z
+        g_fmu = g_v * tt / z
+        g_var = g_z * tt
+        if observed[t]:
+            # ---- the site, from zero incoming sites -------------------------
+            g_tt_all = g_tt_t + (g_v * fmu + g_w) / z + g_z * var
+            g_tn_all = g_tn_t - g_v / z
+            g_r = torch.where(damp * r >= 0.0, damp * g_tt_all, torch.zeros_like(r))
+            g_den = -(g_tn_all * tn + g_r * r) / denom
+            g_dl = damp * g_tn_all / denom
+            g_d2 = -damp * g_tn_all * fmu / denom - g_r / denom + g_den * var
+            g_fmu = g_fmu - damp * g_tn_all * d2 / denom
+            g_var = g_var + g_den * d2
+            # ---- the derivatives of log Z from the totals ------------------
+            g_dl = g_dl - 2.0 * dl * g_d2
+            g_S1, g_S2 = g_dl * Zi, g_d2 * Zi
+            g_Zi = (g_d2 * S2 + g_dl * S1).sum()
+            gA1, gA2 = g_S1[:D], g_S2[:D]
+            gX1, gX2 = g_S1[D:] * rg, g_S2[D:] * rg * rg
+            g_rg = g_S1[D:] * X1 + 2.0 * rg * g_S2[D:] * X2
+            g_is2 = g_rg * sd - g_S2[D:] * Z
+            g_sd = g_rg * is2
+            g_Z = -(is2 * g_S2[D:]).sum()
+            g_var = torch.cat([g_var[:D], g_var[D:] - g_is2 * is2 * is2])
+            # lZk = max(lmax + log Z0, log_floor), Zi = exp(lZ_raw - lZk) / Z0
+            g_e = g_Zi / Z0
+            g_Z0 = -g_Zi * Zi / Z0
+            g_lZk = (0.0 if g_lZ is None else g_lZ[t]) - g_e * e
+            g_raw = g_e * e + torch.where(lZ_raw >= log_floor, g_lZk, torch.zeros_like(g_lZk))
+            g_Z0 = g_Z0 + g_raw / Z0
+            g_Z = g_Z + torch.where(Z >= tiny, g_Z0, torch.zeros_like(g_Z0))
+            # ---- the sigma points ------------------------------------------
+            u1, u2 = a @ gA1, a2 @ gA2
+            ux = xi @ gX1 + xi2 @ gX2
+            g_wns = g_Z + rs * u1 + c2 * u2 + ux
+            g_rs = wns * (u1 + 2.0 * rs * u2)
+            g_inv = -wns * u2
+            g_ln = g_wns * wns
+            g_resid = g_rs * inv - g_ln * rs
+            g_s2e = 0.5 * g_ln * c2 - g_rs * rs * inv - g_inv * inv * inv
+            gsn2 = gsn2 + g_s2e.sum()
+            g_a = ((wns * rs)[:, None] * gA1 + 2.0 * (wns * c2)[:, None] * gA2 * a
+                   - g_resid[:, None] * mu_z + 2.0 * g_s2e[:, None] * a * s2_z)
+            if sq:
+                g_a = torch.where(a_raw >= 1e-12, g_a * 0.5 / a, torch.zeros_like(g_a))
+            gW = gW + g_a.T @ lk
+            g_xn = (g_a @ W) * dlk_fn(xn, lk)
+            g_sd = g_sd + (g_xn * xi).sum(0)
+            g_var = g_var + torch.cat([g_s2e @ a2, torch.where(
+                s2_g >= 0.0, g_sd * 0.5 / sd, torch.zeros_like(sd))])
+            g_fmu = g_fmu + torch.cat([-(g_resid @ a), g_xn.sum(0)])
+        # ---- the observation fmu = H mp, PH = Pp H, var = H' PH -----------
+        g_PH = g_PH + g_var[:, None] * H
+        g_Hs = g_var[:, None] * PH + g_fmu[:, None] * mp + (g_PH[:, None, :] @ Pp)[:, 0]
+        g_mp = g_mp + g_fmu[:, None] * H
+        g_Pp = g_Pp + g_PH[:, :, None] * H[:, None, :]
+        # ---- the prediction mp = A m, Pp = (A P) A' + Q -------------------
+        g_AP = g_Pp @ A
+        g_As = g_Pp.transpose(-1, -2) @ AP + g_AP @ P0.transpose(-1, -2) \
+            + g_mp[:, :, None] * m0[:, None, :]
+        gA += g_As
+        gQ += g_Pp
+        gH += g_Hs
+        m_bar = (At @ g_mp[..., None])[..., 0]
+        P_bar = At @ g_AP
+    return gA.to(dt_), gQ.to(dt_), P_bar, gH.to(dt_), gW.to(dt_), gsn2.to(dt_)
+
+
 def fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant,
                        z_floor, s_chunk=0):
     """K4 reference: ADF forward sweep from zero sites over BF files at once.
@@ -739,6 +913,70 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     return ms, Ps, lZ, tt, tn
 
 
+def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_lZ, g_tt, g_tn,
+                  *, damp, link, variant, z_floor):
+    """K7: the reverse of K3's sweep (see ``fused_adf_vjp_plain``): K3's
+    filtered ms, Ps and the cotangents of its outputs (None = zero) to those
+    of A, Q, Pinf, H, W and sn2.  One launch, one CTA."""
+    outs = [x for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn) if x is not None]
+    if _on_cpu(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, *outs):
+        return fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps,
+                                   g_lZ, g_tt, g_tn, damp=damp, link=link, variant=variant,
+                                   z_floor=z_floor)
+    from nsgp_tpu_torch.ops import _build
+
+    T = y.shape[0]
+    C, bs = H.shape
+    D, N = W.shape
+    S = wn.shape[0]
+    mat = (C, bs, bs)
+    _check_shapes("fused_adf_vjp", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
+                  Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
+                  wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)), ms=(ms, (T, C, bs)),
+                  Ps=(Ps, (T, C, bs, bs)),
+                  **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C, bs)),
+                                               ("g_Ps", g_Ps, (T, C, bs, bs)),
+                                               ("g_lZ", g_lZ, (T,)), ("g_tt", g_tt, (T, C)),
+                                               ("g_tn", g_tn, (T, C))) if x is not None})
+    lib = _build.library()
+    _check_adf("fused_adf_vjp", lib, C, D, N, S, link, variant)
+    args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1), ms, Ps)]
+    cots = [None if x is None else x.contiguous() for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn)]
+    dt_, dev = A.dtype, A.device
+    grads = [torch.empty(s, dtype=dt_, device=dev) for s in (mat, mat, mat, (C, bs), (D, N), ())]
+    # the float64 sums of the parameters' cotangents, where shared memory cannot hold them
+    scratch = torch.empty((lib.nsgp_adf_vjp_scratch(D, N, bs),), dtype=torch.float64, device=dev)
+    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+    _launch("fused_adf_vjp", _by_dtype(lib, "nsgp_fused_adf_vjp", dt_), bs, *map(_ptr, args),
+            *map(_opt_ptr, cots), float(damp), log_floor, T, D, N, S, int(link == "exp"),
+            int(variant == "sq"), *map(_ptr, grads), _ptr(scratch), device=dev)
+    fused_adf_vjp.launches += 1
+    return tuple(grads)
+
+
+class FusedADF(torch.autograd.Function):
+    """K3 forward, K7 backward: EP sweep 1 differentiable in A, Q, Pinf, H, W
+    and sn2 (y, obs, xi and wn get none), once (K7 has no adjoint of its
+    own).  On CPU tensors the two plain twins.  ``kw`` holds damp, link,
+    variant and z_floor."""
+
+    @staticmethod
+    def forward(ctx, y, obs, A, Q, Pinf, H, W, xi, wn, sn2, kw):
+        outs = fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, **kw)
+        ctx.save_for_backward(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, outs[0], outs[1])
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ms, g_Ps, g_lZ, g_tt, g_tn):
+        saved = ctx.saved_tensors
+        gA, gQ, gPinf, gH, gW, gsn2 = fused_adf_vjp(*saved, g_ms, g_Ps, g_lZ, g_tt, g_tn,
+                                                    **ctx.kw)
+        return None, None, gA, gQ, gPinf, gH, gW, None, None, gsn2.reshape(saved[9].shape), None
+
+
 def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_floor,
                  s_chunk=0, _lib=None, _cycles=None):
     """K4: ADF forward sweep over BF files in one launch, a cluster of CTAs a
@@ -784,7 +1022,7 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
     return ms, Ps, lZ, tt, tn
 
 
-WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb)
+WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb, fused_adf_vjp)
 
 
 def reset_launches() -> None:
@@ -809,9 +1047,10 @@ def check_stationary(ssm: BlockSSM) -> None:
     """Raise unless Q = Pinf - A Pinf A' (any leading axes): the kernels
     start from (0, Pinf) and rely on one prediction leaving it unchanged.
     Tolerance relative to max |Pinf|: 1e-5 in float32, 1e-10 in float64."""
-    gap = ssm.Q - (ssm.Pinf - ssm.A @ ssm.Pinf @ ssm.A.transpose(-1, -2))
+    with torch.no_grad():
+        gap = ssm.Q - (ssm.Pinf - ssm.A @ ssm.Pinf @ ssm.A.transpose(-1, -2))
+        rel = float(gap.abs().max() / ssm.Pinf.abs().max())
     tol = 1e-10 if ssm.A.dtype == torch.float64 else 1e-5
-    rel = float(gap.abs().max() / ssm.Pinf.abs().max())
     if not rel <= tol:
         raise ValueError(
             f"the fused passes need the stationary discretization Q = Pinf - A Pinf A' "
@@ -835,15 +1074,17 @@ def filter_smoother_fused(ssm: BlockSSM, sites: Sites):
 
 
 def adf_filter_fused(mp: MomentParams, ssm: BlockSSM, W, sn2, y, mask, damp: float):
-    """ADF sweep from zero sites (``adf_filter_pallas``).  Returns filtered
-    (ms (T, C, bs), Ps (T, C, bs, bs)), lZ (T,), Sites (T, C)."""
+    """ADF sweep from zero sites (``adf_filter_pallas``), differentiable in
+    the SSM, W and sn2 through ``FusedADF`` (K3, and K7 for the gradient).
+    Returns filtered (ms (T, C, bs), Ps (T, C, bs, bs)), lZ (T,), Sites
+    (T, C)."""
     check_stationary(ssm)
     dt_, dev = ssm.A.dtype, ssm.A.device
     wn, xi = sigma_points(mp, dt_, dev)
-    ms, Ps, lZ, tt, tn = fused_adf(
+    ms, Ps, lZ, tt, tn = FusedADF.apply(
         torch.nan_to_num(y).to(dt_), mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H,
         W.to(dt_), xi, wn, torch.as_tensor(sn2, dtype=dt_, device=dev),
-        damp=damp, link=mp.link, variant=mp.variant, z_floor=mp.z_floor,
+        dict(damp=damp, link=mp.link, variant=mp.variant, z_floor=mp.z_floor),
     )
     return ms, Ps, lZ, Sites(tt, tn)
 

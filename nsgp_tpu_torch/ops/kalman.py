@@ -208,7 +208,6 @@ def adf_filter(
     mom_fn,  # (y_k, fmu (C,), fs2 (C,), frac) -> (lZ, dlZ (C,), d2lZ (C,))
     damp: float,
     match_mask: Optional[torch.Tensor] = None,  # (T,) bool: do moment matching
-    store: bool = True,
 ):
     """Forward filter WITH interleaved moment matching (ADF / first EP pass).
 
@@ -242,14 +241,10 @@ def adf_filter(
             m, P = _update(m, P, fmu, PH, HPH, tt, tn)
         else:
             m, P = _update(m, P, fmu, PH, HPH, torch.zeros_like(tt), torch.zeros_like(tn))
-        if store:
-            ms.append(m.reshape(-1))
-            Ps.append(P.reshape(-1))
+        ms.append(m.reshape(-1))
+        Ps.append(P.reshape(-1))
         lZs.append(lZk)
         tts.append(tt)
         tns.append(tn)
-    if store:
-        traj = PackedTrajectory(ms=torch.stack(ms), Ps=torch.stack(Ps))
-    else:
-        traj = PackedTrajectory(ms=m.reshape(1, -1), Ps=P.reshape(1, -1))
+    traj = PackedTrajectory(ms=torch.stack(ms), Ps=torch.stack(Ps))
     return traj, torch.stack(lZs), Sites(torch.stack(tts), torch.stack(tns))

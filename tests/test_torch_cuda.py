@@ -20,6 +20,11 @@ ragged lengths (one chunk, one step more than a chunk, a short last chunk),
 every block size from 1 to 8, one channel and 190, with runs of zero sites and
 a long gap, for equal bits over two runs, exactly zero padded dims and NaN
 propagation.
+K7, the reverse of K3's sweep (the backward of ``FusedADF``), is held
+against its plain twin with seeded cotangents on all five outputs and on lZ
+alone, at bs 1-4, at 77, 193 and 3973 sigma points (one CTA walking them in
+rounds), with a gap and an outlier under the Z floor, for equal bits over
+two runs, and for its refusals.
 IHGP's two sequential passes, K5 (the steady ADF sweep, K3's moment match
 under a table lookup) and K6 (the steady smoother), are held against their
 plain twins with a NaN gap, fixed non-zero sites on unobserved steps, sites
@@ -337,6 +342,94 @@ def test_adf_refuses_what_it_cannot_run(cuda):
                             maskB[:, 0], 0.5)
 
 
+def _vjp_pair(model, params, y, mask, seed=7, only_lZ=False):
+    """K7 and its twin on the same inputs: K3's outputs on the card and
+    seeded normal cotangents on all five (or on lZ alone)."""
+    ssm = model.build_ssm(params)
+    mp = model.moment_params()
+    dt_, dev = ssm.A.dtype, ssm.A.device
+    wn, xi = fk.sigma_points(mp, dt_, dev)
+    args = (y.to(dt_), mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi, wn, params.lik)
+    kw = dict(damp=0.5, link=mp.link, variant=mp.variant, z_floor=mp.z_floor)
+    outs = fk.fused_adf(*args, **kw)
+    rng = np.random.default_rng(seed)
+    cots = [torch.tensor(rng.normal(size=tuple(o.shape)), dtype=dt_, device=dev)
+            if i == 2 or not only_lZ else None for i, o in enumerate(outs)]
+    kern = lambda: fk.fused_adf_vjp(*args, outs[0], outs[1], *cots, **kw)
+    plain = lambda: fk.fused_adf_vjp_plain(*args, outs[0], outs[1], *cots, **kw)
+    return kern, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k1,k2,N,link,variant,only_lZ", [
+    ("exp", "exp", 3, "exp", "sq", False),  # bs 1, S = 77
+    ("matern32", "exp", 2, "softplus", "amp", True),  # bs 2
+    ("matern32", "matern52", 3, "softplus", "sq", False),  # bs 3, S = 77
+    ("exp", "matern72", 4, "softplus", "sq", False),  # bs 4, S = 193: two rounds
+])
+def test_adf_vjp_kernel_matches_plain(cuda, k1, k2, N, link, variant, only_lZ, dtype):
+    model, params, ssm, y, mask = _case(k1, k2, 3, N, dtype, cuda, link, variant)
+    kern, plain = _vjp_pair(model, params, y, mask, only_lZ=only_lZ)
+    fk.reset_launches()
+    got = kern()
+    assert fk.fused_adf_vjp.launches == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, kern()))  # the same bits twice
+    ref = plain()
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adf_vjp_kernel_at_mixture_width(cuda, dtype):
+    """D=48, N=9, 3973 sigma points: one CTA walks them in rounds (K3 takes
+    a cluster of eight there), a gap and an outlier under the Z floor.  In
+    float32 the bar is the one chip_smoke.py holds every float32 kernel to
+    (1e-3): 3973 points summed in another order than the twin's, whose
+    weights at the outlier keep few digits (2.8e-4 measured on an H100)."""
+    model, pB, yB, maskB = _files(1, 48, 9, dtype, cuda, steps=12)
+    y = yB[:, 0].clone()
+    y[6] = 50.0 * y.std()
+    p = pB.select(0)
+    assert fk.sigma_points(model.moment_params(), dtype, cuda)[0].shape[0] == 3973
+    kern, plain = _vjp_pair(model, p, y, maskB[:, 0])
+    got = kern()
+    assert all(torch.equal(a, b) for a, b in zip(got, kern()))
+    assert _rel(got, plain()) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+
+
+@pytest.mark.cuda
+def test_adf_vjp_refuses_what_it_cannot_run(cuda):
+    dt_ = torch.float32
+    model, params, ssm, y, mask = _case("matern32", "matern52", 3, 2, dt_, cuda)
+    wn, xi = fk.sigma_points(model.moment_params(), dt_, cuda)
+    args = [y, mask.to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, params.W, xi, wn, params.lik]
+    kw = dict(damp=0.5, link="softplus", variant="amp", z_floor=1e-10)
+    ms, Ps, lZ, tt, tn = fk.fused_adf(*args, **kw)
+    with pytest.raises(ValueError, match="g_lZ has shape"):
+        fk.fused_adf_vjp(*args, ms, Ps, None, None, lZ[:-1], None, None, **kw)
+    with pytest.raises(ValueError, match="unsupported link"):
+        fk.fused_adf_vjp(*args, ms, Ps, None, None, lZ, None, None,
+                         **dict(kw, link="relu"))
+    with pytest.raises(TypeError):  # one dtype, float32 or float64
+        fk.fused_adf_vjp(*args, ms, Ps, None, None, lZ.double(), None, None, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        fk.fused_adf_vjp(*args, ms, Ps, None, None, lZ.cpu(), None, None, **kw)
+    # more subbands than a warp's lanes take, four a lane
+    model, pB, yB, maskB = _files(1, 130, 2, dt_, cuda, k1="exp", k2="exp", steps=4)
+    p = pB.select(0)
+    ssm = model.build_ssm(p)
+    wn, xi = fk.sigma_points(model.moment_params(), dt_, cuda)
+    args = [yB[:, 0], maskB[:, 0].to(dt_), ssm.A, ssm.Q, ssm.Pinf, ssm.H, p.W, xi, wn, p.lik]
+    C, bs = ssm.H.shape
+    with pytest.raises(ValueError, match="at most 128 subbands"):
+        fk.fused_adf_vjp(*args, torch.zeros((4, C, bs), device=cuda),
+                         torch.zeros((4, C, bs, bs), device=cuda), None, None,
+                         torch.ones(4, device=cuda), None, None, **kw)
+
+
 @pytest.mark.cuda
 def test_adf_mb_refuses_what_it_cannot_run(cuda):
     # more subbands than a warp's lanes take, four a lane: D = 130 > 128
@@ -507,8 +600,9 @@ def test_blocked_passes_take_views_off_a_16_byte_boundary(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The training path on the card: autograd through the sequential engine (no
-# kernel of its own), held against the same code on the CPU at float64.
+# The training path on the card: sweep 1 through K3 and its adjoint K7,
+# later sweeps autograd through the sequential engine, held against the same
+# code on the CPU (the two twins) at float64.
 # ---------------------------------------------------------------------------
 
 TRAIN_TOL = 1e-9
@@ -542,8 +636,11 @@ def test_ep_energy_gradient_card_matches_cpu(cuda, itts):
     model, params, y = _train_case()
     y[20:26] = float("nan")
     energy = lambda p, dev: ep_energy(model, p, y, None, EPConfig(ep_itts=itts), device=dev)
+    fk.reset_launches()
     card = _grads(energy, params, cuda)
     assert card[0].device.type == "cuda"
+    assert {fn.__name__: fn.launches for fn in fk.WRAPPERS} == {
+        "fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1}
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
 
 
@@ -930,7 +1027,7 @@ def test_channel_sharded_fused_ep_on_card(cuda, tmp_path):
     for r in ranks:
         assert r["device"] == "cuda" and r["rel"] <= TOL[torch.float64], r
         assert r["launches"] == {"fused_fwd": 2, "fused_bwd": 3, "fused_adf": 1,
-                                 "fused_adf_mb": 0}, r
+                                 "fused_adf_mb": 0, "fused_adf_vjp": 0}, r
 
 
 @pytest.mark.cuda
