@@ -69,22 +69,33 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    ``grid_lo=-7`` (every table field, the failed coarse points per
    channel), its time in float32; (b) ``ihgp_infer`` at T=1024 float64
    card (K5, K6) vs CPU (their twins) in the sequential, blocked (chunk
-   256) and one-level forms, grid indices equal; ``ihgp_energy`` (K5's
-   plain twin on both) and its gradient over every leaf; ``ep_infer`` on
+   256) and one-level forms, grid indices equal; ``ihgp_energy`` (K5 and
+   K8 on the card, their twins on the CPU) and its gradient over every
+   leaf; ``ep_infer`` on
    ``backend="seq"`` with the one-level scans, with and without ``jitter``;
    (c) K5 and K6 against their plain twins at the headline width: float64
    at T=4096 (grid indices equal, 1e-9), float32 over T=100 000 against the
    twins over 4096 steps (K5's index flips counted, its energy held to
    1e-3), both timed at T=100 000; float32 at T=16 000: sweep 1 through K5
-   (us a step, its energy's gap to float64), ``ihgp_energy``'s plain loop
-   at T=2048, ``ihgp-seq`` and ``ihgp-blocked`` (bench.py:222-228);
+   (us a step, its energy's gap to float64), ``ihgp_energy``'s forward
+   through K5's plain twin at T=2048, ``ihgp-seq`` and ``ihgp-blocked``
+   (bench.py:222-228);
    (d) ``ihgp-blocked`` at T=100 000 (50 000 if (c) predicts sweep 1 over
    150 s there), s/sweep; (e) K5 at mixture width (D=48, N=9, 3973 sigma
    points, a cluster of 8 CTAs) against its twin over 256 steps in both
    types; ``separate()`` with its default engine at mixture width (T=2048
    float32; T=256 float64 card vs CPU) and ``infer_batch("ihgp")`` over
    three corpus models (T=4096), its last file against the single-file
-   engine; the launch counters read 0 for K1-K4 over 8c-8e.
+   engine; (f) the energy's gradient: ``ihgp_energy``'s sweep is K5 forward
+   and its adjoint K8 ``fused_ihgp_adf_vjp`` backward.  K8 against its twin
+   (T=1024 with a NaN gap in both types, mixture width at T=128 in float64,
+   the same bits twice); at T=16 000 float32 one value and gradient (K5 1,
+   K8 1) under 8c's damping 0.1, CUDA kernels a call at T=1024 and 16 000
+   (must not grow), float32 against float64 (held to 1e-3; K5's index flips
+   counted, and at the default damping 0.5 reported), K5 and K8 alone, a
+   3-step ``fit_hyperparams(engine="ihgp")`` (K5 3, K8 3), and the value and
+   gradient through K5's plain twin (the loop it ran before K8) at T=2048;
+   the launch counters read 0 for K1-K4 and K7 over 8c-8f.
    Its line ``{"ihgp": ...}`` follows the training line.
 9. the denoising path (``denoise_phase``): a raw signal to a trained model to
    denoised speech (experiments/denoising.py:55-160 on a seeded draw from the
@@ -219,9 +230,14 @@ T_IH_MIX, T_IH_MIX_F64, T_IH_BATCH, BF_IH = 2048, 256, 4096, 3
 IH_SWEEP1_LIMIT_S = 150.0
 # K5 and K6 against their plain twins (a Python loop over T, 1-2 ms a step on
 # the card): the twins over 4096 steps at the headline width, 256 at mixture
-# width; the energy's plain loop (ihgp_energy) timed over 2048 steps.
+# width; the energy through K5's plain twin (the loop ihgp_energy ran before
+# K8) timed over 2048 steps, forward alone and value and gradient.
 T_IH_KERNEL, T_IH_MIX_KERNEL, T_IH_ENERGY = 4096, 256, 2048
 TOL_IH_GRAD = 1e-9
+# 8f, K8 against its plain twin (a reverse loop over T): T = 1024 at the
+# headline width with a NaN gap, 128 at mixture width; the value and gradient
+# of ihgp_energy and a 3-step fit at the training length T_IH_TRAIN.
+T_IH_VJP, T_IH_VJP_MIX, IH_VJP_GAP, IH_FIT_STEPS = 1024, 128, (300, 340), 3
 
 # The denoising path (phase 9): experiments/denoising.py:55-160 on one speech
 # file at the settings of results/noise_reduction_speech.json (30 EP sweeps,
@@ -317,6 +333,9 @@ KERNELS = {
     "fused_ihgp_smooth": ("nsgp_tpu/inference/ihgp.py:658", "fused_ihgp_smooth.cuh"),
     # the transposed scan that jax.value_and_grad derives from adf_filter's lax.scan
     "fused_adf_vjp": ("nsgp_tpu/ops/kalman.py:239", "fused_adf_vjp.cuh"),
+    # the transposed scan that jax.grad(ihgp_energy) derives from the lax.scan of
+    # _steady_filter_seq
+    "fused_ihgp_adf_vjp": ("nsgp_tpu/inference/ihgp.py:402", "fused_ihgp_adf_vjp.cuh"),
 }
 
 
@@ -601,7 +620,7 @@ def compare(label, name, kern, plain, tol, time_reps, timed=None, rows=slice(Non
     if not err_rel <= tol:
         raise AssertionError(f"{name} ({label}) disagrees with its plain version: "
                              f"rel err {err_rel:.3e} > {tol:g}")
-    return dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err_abs, max_rel_err=err_rel, ms=ms, plain_ms=plain_ms)
 
 
 def adf_case(model, params, y, mask, steps=None):
@@ -1076,10 +1095,11 @@ def training_phase(smi, dev):
     return out
 
 
-def k5_inputs(model, params, y, cfg):
+def k5_inputs(model, params, y, cfg, mask=None):
     """What ``ihgp_infer`` hands K5's wrapper on sweep 1 of (model, params,
-    y) (zero sites, every step observed and matched): (args, kwargs,
-    tables), taken by passing a recorder as the engine's sweep."""
+    y) (zero sites, every step matched, observed where ``mask``, default
+    all): (args, kwargs, tables), taken by passing a recorder as the
+    engine's sweep."""
     import torch
 
     from nsgp_tpu_torch.inference import ihgp
@@ -1095,9 +1115,43 @@ def k5_inputs(model, params, y, cfg):
     tables = ihgp.build_tables(ssm, cfg)
     zeros = torch.zeros((y.shape[0], ssm.num_channels), dtype=ssm.A.dtype, device=y.device)
     seen = torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
-    ihgp._steady_filter_seq(ssm, tables, y, seen, Sites(zeros, zeros), model.moment_params(),
-                            params.W, params.lik, cfg.damp(0), seen, sweep=record)
+    ihgp._steady_filter_seq(ssm, tables, torch.nan_to_num(y), seen if mask is None else mask,
+                            Sites(zeros, zeros), model.moment_params(), params.W, params.lik,
+                            cfg.damp(0), seen, sweep=record)
     return got["args"], got["kwargs"], tables
+
+
+def k8_case(model, params, y, cfg, mask=None, g_lZ=None, seed=13):
+    """(kernel call, plain call, K5's outputs) for K8 on the card, same
+    inputs: K5's outputs on sweep 1 of (model, params, y) (the forward's
+    indices for both) and seeded normal cotangents on ms, lZ, ttau and tnu
+    (``g_lZ`` given: that one alone)."""
+    import torch
+
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    args, kw, _ = k5_inputs(model, params, y, cfg, mask)
+    outs = fih.fused_ihgp_adf(*args, **kw)
+    ms, idx, lZ, tt, tn = outs
+    rng = np.random.default_rng(seed)
+    cots = [torch.tensor(rng.normal(size=tuple(o.shape)), dtype=o.dtype, device=o.device)
+            for o in (ms, lZ, tt, tn)]
+    if g_lZ is not None:
+        cots = [None, g_lZ.to(lZ.dtype), None, None]
+    vjp_args = args + (ms, idx, tt, *cots)
+    return (lambda: fih.fused_ihgp_adf_vjp(*vjp_args, **kw),
+            lambda: fih.fused_ihgp_adf_vjp_plain(*vjp_args, **kw), outs)
+
+
+@contextlib.contextmanager
+def swapped(mod, name, fn):
+    """``mod.name`` is ``fn`` inside the block."""
+    old = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, old)
 
 
 def steady_compare(label, name, got, ref, tol, plain_ms=None):
@@ -1141,6 +1195,20 @@ def bound_ihgp_adf(T, D_, N_, S, bs, G, matched_steps, itemsize=4):
     return bound(n, flops)
 
 
+def bound_ihgp_adf_vjp(T, D_, N_, S, bs, G, matched_steps, cotangent_values, itemsize=4):
+    """K8: reads K5's inputs, its ms, idx (int32) and ttau and
+    ``cotangent_values`` numbers of output cotangents; writes the cotangents
+    of A, H, first, tab, W and sn2.  Operations three times K5's: re-deriving
+    a step, then its reverse (reverse mode costs about twice the forward)."""
+    C = D_ + N_
+    params = C * (bs * bs + bs + (G + 1) * (bs + 1)) + D_ * N_ + 1
+    n = itemsize * (T * (3 + 3 * C + C * bs) + cotangent_values + 2 * params + 4
+                    + S * (N_ + 1)) + 4 * T * C
+    flops = 3 * (T * C * (2 * bs * bs + 4 * bs + 56)
+                 + matched_steps * (S * sigma_flops(D_, N_) + 12 * C))
+    return bound(n, flops)
+
+
 def bound_ihgp_smooth(T, C, bs, gain_rows, itemsize=4):
     """K6: ms, sm (T, C, bs), idx (T, C) int32, A, and the gain rows this
     run's indices reach (``gain_rows`` distinct (channel, grid point)).  Per
@@ -1152,9 +1220,10 @@ def bound_ihgp_smooth(T, C, bs, gain_rows, itemsize=4):
 def ihgp_phase(smi, dev):
     """Phase 8: the IHGP path on the card ``dev``: its two sequential passes
     are K5 (``fused_ihgp_adf``, the steady ADF sweep) and K6
-    (``fused_ihgp_smooth``), counterparts of the two scans JAX compiles;
-    the bank, the blocked and one-level passes and the re-site are plain
-    torch.  Returns the numbers of the ``ihgp`` line."""
+    (``fused_ihgp_smooth``), counterparts of the two scans JAX compiles, and
+    the energy's gradient runs K5's adjoint K8 (``fused_ihgp_adf_vjp``); the
+    bank, the blocked and one-level passes and the re-site are plain torch.
+    Returns the numbers of the ``ihgp`` line."""
     import torch
 
     from nsgp_tpu_torch.apps.source_sep import separate
@@ -1162,31 +1231,45 @@ def ihgp_phase(smi, dev):
     from nsgp_tpu_torch.inference import ihgp
     from nsgp_tpu_torch.inference.batched import infer_batch
     from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+    from nsgp_tpu_torch.inference.learn import fit_hyperparams
     from nsgp_tpu_torch.models import mixture
     from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFParams
-    from nsgp_tpu_torch.ops import dare
+    from nsgp_tpu_torch.ops import _build, dare
     from nsgp_tpu_torch.ops import fused_ihgp as fih
     from nsgp_tpu_torch.ops import fused_kalman as fk
+    from nsgp_tpu_torch.tools.probe_train import kernels_per_step
+    from nsgp_tpu_torch.tools.ptxas_report import parse as parse_ptxas
 
     t_phase = time.perf_counter()
     out = {"device": smi}
     counts = lambda: {fn.__name__: fn.launches for fn in fk.WRAPPERS}
     ih_counts = lambda: {fn.__name__: fn.launches for fn in fih.WRAPPERS}
-    launches = {}  # K5 and K6 launches per IHGP path
+    launches = {}  # K5, K6 and K8 launches per IHGP path
 
     def counted(path, fn, want):
-        """Run ``fn`` with K5's and K6's counts set to 0 just before and read
-        just after; they must be ``want`` (K5, K6)."""
+        """Run ``fn`` with K5's, K6's and K8's counts set to 0 just before and
+        read just after; they must be ``want`` (K5, K6, K8)."""
         fih.reset_launches()
         res = fn()
         got = ih_counts()
         launches[path] = got
-        require((got["fused_ihgp_adf"], got["fused_ihgp_smooth"]) == want,
-                f"IHGP path {path}: K5, K6 launched {got}, expected {want}")
+        require((got["fused_ihgp_adf"], got["fused_ihgp_smooth"], got["fused_ihgp_adf_vjp"])
+                == want, f"IHGP path {path}: K5, K6, K8 launched {got}, expected {want}")
         return res
 
+    def value_and_grad(model_, params, y_, T_, cfg=ihgp.IHGPConfig()):
+        """ihgp_energy under ``cfg`` and its gradient over every leaf: one
+        vector, the energy first."""
+        leaves = {k: getattr(params, k).detach().clone().requires_grad_(True)
+                  for k in PARAM_NAMES}
+        e = ihgp.ihgp_energy(model_, GTNMFParams(**leaves), y_[:T_], None, cfg,
+                             device=y_.device)
+        return torch.cat([e.reshape(1).detach()] + [
+            g.reshape(-1) for g in torch.autograd.grad(e, list(leaves.values()))])
+
     cfg_seq, cfg_blk = ihgp.IHGPConfig(**IH_SEQ), ihgp.IHGPConfig(**IH_BLOCKED)
-    seq_want = (cfg_seq.ep_itts, cfg_seq.ep_itts)  # K5 and K6 every sweep; parallel: K5 once
+    # K5 and K6 every sweep; parallel: K5 once; a value and gradient K5 and K8 once
+    seq_want, par_want = (cfg_seq.ep_itts, cfg_seq.ep_itts, 0), (1, 0, 0)
 
     # ---- 8a: the DARE bank, card vs CPU, float64 ---------------------------------
     model, p64, y64 = bench_inputs(torch.float64, "cpu")
@@ -1228,7 +1311,7 @@ def ihgp_phase(smi, dev):
                       ("one_level", dict(parallel=True, chunk=0))):
         cfg = ihgp.IHGPConfig(**IH_SEQ, **kw)
         rc, card_s = host_s(lambda: counted(f"parity_{label}", lambda: ihgp.ihgp_infer(
-            model, p64, yp, None, cfg), seq_want if label == "seq" else (1, 0)))
+            model, p64, yp, None, cfg), seq_want if label == "seq" else par_want))
         t0 = time.perf_counter()
         rh = ihgp.ihgp_infer(model, p64, yp, None, cfg, device="cpu")
         cpu_s = time.perf_counter() - t0
@@ -1243,17 +1326,13 @@ def ihgp_phase(smi, dev):
             f"{rc.nlZ.cpu().tolist()}")
         require(rel <= TOL_TRAIN and same_idx, f"ihgp_infer {label} on the card disagrees")
         out["parity"][label] = dict(rel=rel, card_s=card_s, cpu_s=cpu_s)
-    grads = []
-    for d in (dev, "cpu"):
-        leaves = {k: getattr(p64, k).detach().to(d).requires_grad_(True) for k in PARAM_NAMES}
-        e = counted(f"energy_{torch.device(d).type}", lambda: ihgp.ihgp_energy(
-            model, GTNMFParams(**leaves), yp, None, device=d), (0, 0))
-        grads.append(torch.cat([e.reshape(1).detach()] + [
-            g.reshape(-1) for g in torch.autograd.grad(e, list(leaves.values()))]).cpu())
+    grads = [counted(f"energy_{d}", lambda: value_and_grad(model, p64.on(d), yp.to(d),
+                                                           T_IH_PARITY).cpu(), want)
+             for d, want in ((dev.type, (1, 0, 1)), ("cpu", (0, 0, 0)))]
     g_rel = rel_err(*grads)
-    log(f"phase8b ihgp_energy (K5's plain twin: autograd runs through it) and its gradient "
-        f"over every leaf T={T_IH_PARITY} f64: energy {grads[0][0].item():.10g}, card vs cpu "
-        f"rel {g_rel:.3e} (tol {TOL_IH_GRAD:g})")
+    log(f"phase8b ihgp_energy and its gradient over every leaf T={T_IH_PARITY} f64 (card: K5, "
+        f"K6, K8 {launches[f'energy_{dev.type}']}; the CPU: their twins): energy "
+        f"{grads[0][0].item():.10g}, card vs cpu rel {g_rel:.3e} (tol {TOL_IH_GRAD:g})")
     require(bool(torch.isfinite(grads[0]).all()) and g_rel <= TOL_IH_GRAD,
             "ihgp_energy's gradient on the card disagrees with the CPU")
     out["parity"]["energy_grad_rel"] = g_rel
@@ -1341,19 +1420,21 @@ def ihgp_phase(smi, dev):
     e32, e64 = -lZ32.double().sum(), -lZ64.sum()
     gap = rel_err(e32.cpu(), e64.cpu())
     us_step = 1e6 * sweep1_s / T_IH_TRAIN
-    with torch.no_grad():
+    # the energy's forward through K5's plain twin, the loop it ran before K8
+    with torch.no_grad(), swapped(fih, "fused_ihgp_adf_autograd", fih.fused_ihgp_adf_plain):
         ihgp.ihgp_energy(model, p32, yt[:256], None, cfg_seq)
         _, energy_s = host_s(lambda: ihgp.ihgp_energy(model, p32, yt[:T_IH_ENERGY], None, cfg_seq))
     r_seq, seq_s = host_s(lambda: counted("seq_16000", lambda: ihgp.ihgp_infer(
         model, p32, yt, None, cfg_seq), seq_want))
     r_blk, blk_s = host_s(lambda: counted("blocked_16000", lambda: ihgp.ihgp_infer(
-        model, p32, yt, None, cfg_blk), (1, 0)))
+        model, p32, yt, None, cfg_blk), par_want))
     for label, r in (("ihgp-seq", r_seq), ("ihgp-blocked", r_blk)):
         check_posterior(f"phase8c {label}", r.nlZ, r.Eft, r.Varft, (T_IH_TRAIN, D + N))
     log(f"phase8c T={T_IH_TRAIN} f32 on {smi}: sweep 1 (K5, tables built) {sweep1_s:.4f} s = "
         f"{us_step:.2f} us/step; its energy f32 vs f64 {e32.item():.8g} vs {e64.item():.8g}, "
-        f"rel gap {gap:.3e} (bar 1e-3); ihgp_energy (bank + K5's plain twin) at "
-        f"T={T_IH_ENERGY} {energy_s:.2f} s = {1e6 * energy_s / T_IH_ENERGY:.0f} us/step; "
+        f"rel gap {gap:.3e} (bar 1e-3); ihgp_energy's forward through K5's plain twin (bank "
+        f"+ the twin's loop) at T={T_IH_ENERGY} {energy_s:.2f} s = "
+        f"{1e6 * energy_s / T_IH_ENERGY:.0f} us/step; "
         f"ihgp-seq {seq_s:.2f} s (K5, K6 {launches['seq_16000']}), nlZ "
         f"{r_seq.nlZ.cpu().tolist()}; ihgp-blocked {blk_s:.2f} s (K5, K6 "
         f"{launches['blocked_16000']}), nlZ {r_blk.nlZ.cpu().tolist()}")
@@ -1366,7 +1447,7 @@ def ihgp_phase(smi, dev):
     predicted = us_step * T_MAIN / 1e6
     T_d = T_MAIN if predicted <= IH_SWEEP1_LIMIT_S else T_IH_CUT
     r_d, d_s = host_s(lambda: counted("headline_blocked", lambda: ihgp.ihgp_infer(
-        model, p32, y32[:T_d], None, cfg_blk), (1, 0)))
+        model, p32, y32[:T_d], None, cfg_blk), par_want))
     check_posterior("phase8d ihgp-blocked", r_d.nlZ, r_d.Eft, r_d.Varft, (T_d, D + N))
     log(f"phase8d ihgp-blocked T={T_d} f32 on {smi}: {d_s:.2f} s, {d_s / 3:.3f} s/sweep "
         f"(sweep 1 predicted {predicted:.2f} s at T={T_MAIN}"
@@ -1403,7 +1484,7 @@ def ihgp_phase(smi, dev):
                 f"({1e3 * mix_ms / T_IH_MIX:.2f} us/step)")
     models, plist, y_mix, parts = mixture_inputs(torch.float32, dev, T_IH_MIX)
     sep, sep_s = host_s(lambda: counted("separate", lambda: separate(
-        models, plist, y_mix, true_sources=parts, mixture_lik=MIX_LIK, **IH_MIX_KW), (1, 0)))
+        models, plist, y_mix, true_sources=parts, mixture_lik=MIX_LIK, **IH_MIX_KW), par_want))
     require(bool(torch.isfinite(sep.sources).all()) and bool(torch.isfinite(sep.snr).all())
             and bool(torch.isfinite(sep.result.nlZ).all()), "non-finite IHGP separation")
     m64, pm64, ym64, parts64 = mixture_inputs(torch.float64, dev, T_IH_MIX_F64)
@@ -1427,7 +1508,7 @@ def ihgp_phase(smi, dev):
     maskB = torch.ones_like(yB, dtype=torch.bool)
     maskB[:, 1500 - 1 - GAP_HALF:1500 + GAP_HALF] = False
     rb, batch_s = host_s(lambda: counted("batch", lambda: infer_batch(
-        "ihgp", cmodel, cpB, yB, maskB, **IH_CORPUS_KW), (BF_IH, 0)))
+        "ihgp", cmodel, cpB, yB, maskB, **IH_CORPUS_KW), (BF_IH, 0, 0)))
     b = BF_IH - 1
     r1 = ihgp.ihgp_infer(cmodel, cpB.select(b), yB[b], maskB[b], ihgp.IHGPConfig(**IH_CORPUS_KW))
     same = all(torch.equal(x[b], y) for x, y in ((rb.Eft, r1.Eft), (rb.Varft, r1.Varft),
@@ -1437,8 +1518,117 @@ def ihgp_phase(smi, dev):
         f"{batch_s:.2f} s (K5, K6 {launches['batch']}), nlZ {rb.nlZ[:, -1].cpu().tolist()}; "
         f"file {b} the same bits as the single-file engine: {same}")
     require(same, "batched IHGP differs from the single-file engine")
+    # ---- 8f: the energy's gradient: K8 against its twin, then at the training length --
+    vjp_checks = {}
+    for dtype, tol, label in ((torch.float64, TOL_F64, "f64"), (torch.float32, TOL_F32, "f32")):
+        pv = p64.on(dev) if dtype == torch.float64 else p32
+        yv = (y64.to(dev) if dtype == torch.float64 else y32)[:T_IH_VJP].clone()
+        mv = torch.ones(T_IH_VJP, dtype=torch.bool, device=dev)
+        mv[IH_VJP_GAP[0]:IH_VJP_GAP[1]] = False  # a NaN gap
+        yv[~mv] = math.nan
+        kern8, plain8, _ = k8_case(model, pv, yv, ihgp.IHGPConfig(), mv)
+        vjp_checks[label] = compare(
+            f"phase8f {label} T={T_IH_VJP} D={D} N={N} S=77 gap {IH_VJP_GAP}, cotangents on ms, "
+            f"lZ, ttau, tnu (K5's indices)", "fused_ihgp_adf_vjp", kern8, plain8, tol, 1)
+    models, plist, y_mix, _ = mixture_inputs(torch.float64, dev, T_IH_VJP_MIX)
+    jm, jp, _ = mixture.join_models(models, plist, lik=MIX_LIK)
+    kern8, plain8, _ = k8_case(jm, jp, y_mix, ihgp.IHGPConfig(**IH_MIX_KW))
+    vjp_checks["f64_mixture"] = compare(
+        f"phase8f f64 T={T_IH_VJP_MIX} D={jm.D} N={jm.N} S=3973 (one CTA, rounds; the table's "
+        f"sums in the scratch)", "fused_ihgp_adf_vjp", kern8, plain8, TOL_F64, 1)
+    # the value and gradient at the training length, float32, under 8c's config
+    # (damping 0.1): K5 once, K8 once
+    value_and_grad(model, p32, yt, 256, cfg_seq)  # first use of each op outside the timing
+    vg32, vg_s = host_s(lambda: counted("energy_16000", lambda: value_and_grad(
+        model, p32, yt, T_IH_TRAIN, cfg_seq), (1, 0, 1)))
+    vg64, vg64_s = host_s(lambda: value_and_grad(model, p64.on(dev), y64.to(dev), T_IH_TRAIN,
+                                                 cfg_seq))
+    e_gap, g_gap = rel_err(vg32[:1].cpu(), vg64[:1].cpu()), rel_err(vg32[1:].cpu(), vg64[1:].cpu())
+    # K5's float32 and float64 sweeps: grid-index flips and the energy's gap, under
+    # 8c's damping (held above) and the IHGPConfig default 0.5 (reported: there the
+    # float32 forward sweep leaves float64's)
+    sweep_f32_f64 = {}
+    for label, cfg in (("damping_0.1", cfg_seq), ("damping_0.5_default", ihgp.IHGPConfig())):
+        a32, k32_, _ = k5_inputs(model, p32, yt, cfg)
+        a64, k64_, _ = k5_inputs(model, p64.on(dev), y64[:T_IH_TRAIN].to(dev), cfg)
+        o32, o64 = fih.fused_ihgp_adf(*a32, **k32_), fih.fused_ihgp_adf(*a64, **k64_)
+        sweep_f32_f64[label] = dict(
+            index_flips=int((o32[1] != o64[1]).sum().item()), indices=o32[1].numel(),
+            energy_rel_gap=rel_err(o32[2].double().sum().reshape(1).cpu(),
+                                   o64[2].sum().reshape(1).cpu()))
+    per_call = {}
+    for T_ in (T_IH_VJP, T_IH_TRAIN):  # no per-step loop: kernels a call do not grow with T
+        (k_fwd, k_bwd), (b_fwd, b_bwd), (w_fwd, w_bwd) = kernels_per_step(
+            lambda p: ihgp.ihgp_energy(model, p, yt[:T_], None, cfg_seq), p32, T_)
+        per_call[T_] = dict(kernels_forward=k_fwd * T_, kernels_backward=k_bwd * T_,
+                            device_busy_s=1e-6 * (b_fwd + b_bwd) * T_,
+                            traced_wall_s=1e-6 * (w_fwd + w_bwd) * T_,
+                            idle_share=1.0 - (b_fwd + b_bwd) / (w_fwd + w_bwd))
+    n_call = {T_: v["kernels_forward"] + v["kernels_backward"] for T_, v in per_call.items()}
+    require(n_call[T_IH_TRAIN] <= 1.1 * n_call[T_IH_VJP],
+            f"phase8f: CUDA kernels a call grow from {n_call[T_IH_VJP]:.0f} at T={T_IH_VJP} to "
+            f"{n_call[T_IH_TRAIN]:.0f} at {T_IH_TRAIN}: a per-step loop")
+    kern8, _, _ = k8_case(model, p32, yt, cfg_seq, g_lZ=-torch.ones(T_IH_TRAIN, device=dev))
+    k8_ms = cuda_ms(kern8, 3)
+    at_e, kt_e, tab_e = k5_inputs(model, p32, yt, cfg_seq)
+    k5e_ms = cuda_ms(lambda: fih.fused_ihgp_adf(*at_e, **kt_e), 3)
+    fit32, fit_s = host_s(lambda: counted("fit_16000", lambda: fit_hyperparams(
+        model, p32, yt, engine="ihgp", steps=IH_FIT_STEPS, learning_rate=1e-2,
+        damping=cfg_seq.damping), (IH_FIT_STEPS, 0, IH_FIT_STEPS)))
+    require(bool(torch.isfinite(fit32.energies).all()), "non-finite IHGP training energies")
+    # the same value and gradient through K5's plain twin, the loop it ran before K8
+    with swapped(fih, "fused_ihgp_adf_autograd", fih.fused_ihgp_adf_plain):
+        value_and_grad(model, p32, yt, 64, cfg_seq)
+        twin_vg = host_s(lambda: value_and_grad(model, p32, yt, T_IH_ENERGY, cfg_seq))
+    twin_vg_s = twin_vg[1]
+    twin_rel = rel_err(twin_vg[0].cpu(),
+                       value_and_grad(model, p32, yt, T_IH_ENERGY, cfg_seq).cpu())
+    log_path = _build.ptxas_log_path(_build.library_path())
+    ptxas = {f"{dt}_bs{bs}": dict(registers=r, stack_B=st, spill_store_B=ss, spill_load_B=sl)
+             for k, dt, bs, r, st, ss, sl in (parse_ptxas(log_path.read_text())
+                                              if log_path.exists() else [])
+             if k == "fused_ihgp_adf_vjp_kernel" and bs == ssm32.block_size}
+    pc = per_call[T_IH_TRAIN]
+    log(f"phase8f ihgp_energy T={T_IH_TRAIN} f32 on {smi}: value+grad {vg_s:.3f} s "
+        f"({1e6 * vg_s / T_IH_TRAIN:.1f} us/step), K5, K6, K8 {launches['energy_16000']}; K5 "
+        f"alone {k5e_ms:.2f} ms, K8 alone {k8_ms:.2f} ms ({1e3 * k8_ms / T_IH_TRAIN:.2f} "
+        f"us/step); CUDA kernels a call (traced) forward {pc['kernels_forward']:.0f}, backward "
+        f"{pc['kernels_backward']:.0f} (at T={T_IH_VJP}: "
+        f"{per_call[T_IH_VJP]['kernels_forward']:.0f}, "
+        f"{per_call[T_IH_VJP]['kernels_backward']:.0f}), device busy {pc['device_busy_s']:.3f} "
+        f"of {pc['traced_wall_s']:.3f} s (idle share {pc['idle_share']:.3f}); f64 value+grad "
+        f"{vg64_s:.3f} s; K8 ptxas {ptxas}")
+    log(f"phase8f f32 vs f64 at T={T_IH_TRAIN} (damping {cfg_seq.damp(0)}): energy "
+        f"{vg32[0].item():.8g} vs {vg64[0].item():.8g}, rel gap {e_gap:.3e} (bar 1e-3); gradient "
+        f"rel to max {g_gap:.3e}; K5's float32 against float64 sweep by damping: "
+        f"{sweep_f32_f64} (grid-index flips; the default's gap is reported, not held); the "
+        f"twin's loop (K5's plain twin under autograd) value+grad at "
+        f"T={T_IH_ENERGY} {twin_vg_s:.2f} s ({1e6 * twin_vg_s / T_IH_ENERGY:.0f} us/step, "
+        f"{twin_vg_s * T_IH_TRAIN / T_IH_ENERGY:.1f} s scaled to T={T_IH_TRAIN}), rel "
+        f"{twin_rel:.3e} from K5 and K8 on the same inputs; fit_hyperparams(engine='ihgp') "
+        f"{IH_FIT_STEPS} Adam steps {fit_s:.2f} s, K5, K6, K8 {launches['fit_16000']}, energies "
+        f"{fit32.energies.cpu().tolist()}")
+    require(math.isfinite(e_gap) and e_gap < 1e-3, "float32 IHGP energy drifted from float64")
+    require(bool(torch.isfinite(vg32).all()), "non-finite float32 IHGP gradient")
+    out["energy_grad"] = dict(
+        T=T_IH_TRAIN, value_grad_s=vg_s, value_grad_us_per_step=1e6 * vg_s / T_IH_TRAIN,
+        damping=cfg_seq.damp(0), value_grad_f64_s=vg64_s, energy_rel_gap_f64=e_gap,
+        grad_rel_gap_f64=g_gap, sweep_f32_vs_f64=sweep_f32_f64, k5_ms=k5e_ms, k8_ms=k8_ms,
+        per_call=per_call, twin_T=T_IH_ENERGY, twin_value_grad_s=twin_vg_s,
+        twin_vs_kernels_rel=twin_rel,
+        fit=dict(steps=IH_FIT_STEPS, s=fit_s, energies=fit32.energies.cpu().tolist()))
+    kern["fused_ihgp_adf_vjp"] = dict(
+        ms=k8_ms, plain_ms=vjp_checks["f32"]["plain_ms"], plain_steps=T_IH_VJP,
+        max_abs_err=vjp_checks["f32"]["max_abs_err"],
+        max_rel_err=vjp_checks["f32"]["max_rel_err"], ptxas=ptxas,
+        bound=bound_ihgp_adf_vjp(T_IH_TRAIN, D, N, 77, ssm32.block_size, tab_e.Ph.shape[1],
+                                 T_IH_TRAIN, T_IH_TRAIN),
+        shape=f"T={T_IH_TRAIN} D={D} N={N} S=77 bs={ssm32.block_size} G={tab_e.Ph.shape[1]} f32",
+        checks=vjp_checks, **fk.adf_launch_shape(77))
+
     k14 = counts()
-    log(f"phase8 launches of K1-K4 on the IHGP path (8c-8e): {k14}; K5, K6 per path: {launches}")
+    log(f"phase8 launches of K1-K4 and K7 on the IHGP path (8c-8f): {k14}; K5, K6, K8 per "
+        f"path: {launches}")
     require(all(v == 0 for v in k14.values()),
             "the IHGP path launched a kernel that JAX's IHGP does not use")
     out.update(separate=dict(T=T_IH_MIX, s=sep_s, snr_db=sep.snr.cpu().tolist(),
@@ -2596,7 +2786,11 @@ def main() -> int:
     # another path runs the kernel at another shape.  K7 is the training
     # path's (phase 7b: one value and gradient at T=16 000, its `ms` K7 alone
     # on that run's inputs, `max_abs_err` and `plain_ms` 7a's float32 check
-    # with lZ's cotangent over `plain_steps`, every 7a check in `checks`).  No single PyTorch call computes a T-long
+    # with lZ's cotangent over `plain_steps`, every 7a check in `checks`).  K8 is
+    # the IHGP path's (phase 8f: one value and gradient of ihgp_energy at T=16 000,
+    # its `ms` K8 alone on that run's inputs, `max_abs_err` and `plain_ms` the
+    # float32 check over `plain_steps`, its registers and spills from the build's
+    # ptxas log in `ptxas`).  No single PyTorch call computes a T-long
     # data-dependent recursion, so `library_ms` is null throughout.
     def numbers(nums, shape, **more):
         nums = dict(nums)
@@ -2669,6 +2863,16 @@ def main() -> int:
                           "experiments": launches_exp["fused_adf_vjp"],
                           "mesh": [r["fused_adf_vjp"] for r in mesh_numbers["launches_by_rank"]]},
         checks=vjp["checks"], threads=fk.adf_launch_shape(77)["threads"], cluster=1))
+    k8 = ih_kern["fused_ihgp_adf_vjp"]
+    replaces, source = KERNELS["fused_ihgp_adf_vjp"]
+    kernels.append(dict(
+        name="fused_ihgp_adf_vjp", route="cuda", source=f"nsgp_tpu_torch/csrc/{source}",
+        replaces=replaces, launches=ih_launches["energy_16000"]["fused_ihgp_adf_vjp"],
+        library_ms=None,
+        **numbers({k: k8[k] for k in ("ms", "plain_ms", "plain_steps", "max_abs_err",
+                                      "max_rel_err", "bound")}, k8["shape"]),
+        launches_by_path={path: c["fused_ihgp_adf_vjp"] for path, c in ih_launches.items()},
+        checks=k8["checks"], ptxas=k8["ptxas"], threads=k8["threads"], cluster=k8["cluster"]))
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ihgp": ihgp_numbers}), flush=True)
     print(json.dumps({"denoise": denoise_numbers}), flush=True)

@@ -27,11 +27,15 @@ Pf = PP - K ro K' (``pf_correct=0.0``); ``keep_best`` picks a sweep's
 posterior by EP energy; the sequential form re-matches the last site forward
 and never re-sites it backward.
 
-``ihgp_energy`` runs the plain twin of K5 on every device: its autograd
-graph runs through the sweep and K5 has no adjoint.  It builds only the
-forward tables: its graph never reaches the smoother tables' ``eigh``, whose
-backward is NaN at the repeated zero eigenvalues of padded dims.  Entry
-points follow ``utils.device``: the card unless ``device="cpu"``.
+``ihgp_energy``'s sweep goes through ``ops.fused_ihgp.FusedIHGPADF``: on
+the card K5 forward and its hand-written adjoint K8
+(``fused_ihgp_adf_vjp``) backward, one launch each a value and gradient; on
+the CPU their plain twins.  The gradient of the table rows and of the Pinf
+row flows on through the DARE bank under autograd, vectorised over (channel,
+grid).  It builds only the forward tables: its graph never reaches the
+smoother tables' ``eigh``, whose backward is NaN at the repeated zero
+eigenvalues of padded dims.  Entry points follow ``utils.device``: the card
+unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -234,7 +238,8 @@ def _steady_filter_seq(ssm: BlockSSM, tables: IHGPTables, y, mask, sites: Sites,
     """Sequential steady filter with interleaved ADF matching (ref
     ihgp_ep_modulator_nmf.m:233-310), through ``sweep``: K5's wrapper (the
     kernel on the card, its plain twin on the CPU) or, where autograd must
-    run through it, the plain twin itself.  ``match_mask`` (T,) bool is
+    run through it, ``fused_ihgp_adf_autograd`` (K5 forward, K8 backward).
+    ``match_mask`` (T,) bool is
     all-True on the ADF sweep and last-step-only on later sweeps (:251).
     Returns (ms (T, C*bs), idx (T, C), lZ (T,), sites)."""
     H = ssm.H
@@ -531,9 +536,9 @@ def ihgp_energy(
     """ADF single-sweep negative log marginal likelihood (ref
     ihgp_ep_modulator_nmf.m:533-624: energy mode is one ADF sweep).  A 0-d
     tensor differentiable by autograd with respect to every ``GTNMFParams``
-    leaf, through the DARE doubling iterations.  The sweep is K5's plain
-    twin on every device, the card included: autograd runs through it, and
-    K5 has no adjoint."""
+    leaf, through the DARE doubling iterations.  The sweep is
+    ``FusedIHGPADF``: on the card one launch of K5 forward and one of its
+    adjoint K8 backward, whatever T."""
     full_fp32()
     dev, params, y, mask = place_inputs(params, y, mask, device)
     T = y.shape[0]
@@ -543,5 +548,5 @@ def ihgp_energy(
     _, _, lZ, _ = _steady_filter_seq(ssm, tables, y, mask, Sites(zeros, zeros),
                                      model.moment_params(), params.W, params.lik, config.damp(0),
                                      torch.ones((T,), dtype=torch.bool, device=dev),
-                                     sweep=fih.fused_ihgp_adf_plain)
+                                     sweep=fih.fused_ihgp_adf_autograd)
     return -torch.sum(lZ)

@@ -52,6 +52,9 @@ _SIGNATURES = {
     "nsgp_fused_ihgp_smooth_f64": ([_i] + [_p] * 5 + [_i] * 3 + [_p], _i),
     "nsgp_fused_adf_vjp_f32": ([_i] + [_p] * 17 + [_d, _d] + [_i] * 6 + [_p] * 8, _i),
     "nsgp_fused_adf_vjp_f64": ([_i] + [_p] * 17 + [_d, _d] + [_i] * 6 + [_p] * 8, _i),
+    "nsgp_ihgp_adf_vjp_scratch": ([_i, _i, _i, _i], ctypes.c_longlong),
+    "nsgp_fused_ihgp_adf_vjp_f32": ([_i] + [_p] * 21 + [_d] * 4 + [_i] * 7 + [_p] * 8, _i),
+    "nsgp_fused_ihgp_adf_vjp_f64": ([_i] + [_p] * 21 + [_d] * 4 + [_i] * 7 + [_p] * 8, _i),
 }
 
 

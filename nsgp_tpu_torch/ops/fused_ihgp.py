@@ -2,19 +2,24 @@
 
 Counterparts of the two scans that ``nsgp_tpu/inference/ihgp.py`` compiles
 into single device loops under ``jax.jit`` (not of Pallas kernels: JAX's IHGP
-reaches none):
+reaches none), and of the transposed scan that ``jax.grad`` derives from the
+first for ``ihgp_energy``:
 
-    fused_ihgp_adf     (K5)  the steady ADF sweep, one    <- ihgp.py:402, the scan of
-                             launch a forward pass            _steady_filter_seq
-    fused_ihgp_smooth  (K6)  the steady RTS smoother of   <- ihgp.py:658, the scan of
-                             the sequential form              _steady_smoother
+    fused_ihgp_adf      (K5)  the steady ADF sweep, one    <- ihgp.py:402, the scan of
+                              launch a forward pass            _steady_filter_seq
+    fused_ihgp_smooth   (K6)  the steady RTS smoother of   <- ihgp.py:658, the scan of
+                              the sequential form              _steady_smoother
+    fused_ihgp_adf_vjp  (K8)  K5's sweep in reverse: the   <- the transpose of the
+                              cotangents of its outputs       scan at ihgp.py:402
+                              to its parameters'
 
 (``csrc/fused_ihgp_adf.cuh``, whose moment match is K3's step,
-``csrc/adf_step.cuh``, under a steady-table recursion; and
-``csrc/fused_ihgp_smooth.cuh``.)  As in ``ops/fused_kalman.py`` each wrapper
-does one of two things: on CPU tensors it runs its plain version
-(``*_plain``, the loop over T that the engine ran before), on CUDA tensors
-it launches its kernel or raises; it counts its launches in
+``csrc/adf_step.cuh``, under a steady-table recursion;
+``csrc/fused_ihgp_smooth.cuh``; ``csrc/fused_ihgp_adf_vjp.cuh``.)
+``FusedIHGPADF`` binds K5 and K8 as one ``torch.autograd.Function``.  As in
+``ops/fused_kalman.py`` each wrapper does one of two things: on CPU tensors
+it runs its plain version (``*_plain``, a loop over T), on CUDA tensors it
+launches its kernel or raises; it counts its launches in
 ``<wrapper>.launches``.  The grid lookup of the steady tables lives here,
 beside the sweep that needs it on both sides.
 """
@@ -25,8 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from nsgp_tpu_torch.ops.fused_kalman import (_by_dtype, _check_adf, _check_shapes, _launch,
-                                             _on_cpu, _ptr)
+from nsgp_tpu_torch.ops.fused_kalman import (PlainMatch, _by_dtype, _check_adf, _check_shapes,
+                                             _launch, _on_cpu, _opt_ptr, _ptr)
 from nsgp_tpu_torch.ops.moments import MomentParams, _log_floor, moments, sigma_points
 
 
@@ -152,6 +157,116 @@ def fused_ihgp_adf_plain(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup,
     return torch.stack(ms), torch.stack(idxs), torch.stack(lZs), torch.stack(tts), torch.stack(tns)
 
 
+def fused_ihgp_adf_vjp_plain(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn2,
+                             ms, idx, tt, g_ms, g_lZ, g_tt, g_tn, *, mp: MomentParams,
+                             damp: float):
+    """K8 reference: the vector-Jacobian product of ``fused_ihgp_adf_plain``.
+
+    Inputs as ``fused_ihgp_adf_plain``'s, its outputs ms (T, C*bs), idx and
+    ttau (T, C), and the cotangents of ms, lZ, ttau and tnu (None = zero).
+    Returns the cotangents of A (C, bs, bs), H (C, bs), first (C, bs+1), tab
+    (C, G, bs+1), W (D, N) and sn2 ().  y, the flags, the incoming sites and
+    the grid get none; the lookup is piecewise constant.
+
+    A reverse loop over t = T-1 .. 0 in the kernel's step order.  Step t is
+    re-derived from the stored ms[t-1] (0 at t = 0) and the row it read:
+    ``first`` at t = 0, else tab[c, id_next(t-1)] with id_next = idx where
+    observed, else lookup(ttau), both from the forward's outputs (a lookup
+    re-derived from a recomputed site can flip in float32).  Then backwards:
+    the mean update m = A m_prev + Ph gain, the gain (the pure-prediction
+    branch at tt_eff == 0 passes nothing), the damped and clamped site, the
+    moment match (``PlainMatch``), fmu = (h'A) m_prev.  The row's cotangent
+    is scattered into the row the step read.  Parameter sums in float64
+    whatever the dtype.
+    """
+    T = y.shape[0]
+    C, bs = H.shape
+    dt_, dev = A.dtype, A.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    wn, xi = sigma_points(mp, dt_, dev)
+    log_floor = _log_floor(mp.z_floor, dt_)
+    car = torch.arange(C, device=dev)
+    At = A.transpose(-1, -2)
+    HA = (H[:, None, :] @ A)[:, 0]
+    seen = obs.tolist()
+    do = (obs & match).tolist()
+    id_next = torch.where(obs[:, None], idx, lookup_idx(lk, tt))  # the row step t + 1 read
+    ms = ms.reshape(T, C, bs)
+    gA = torch.zeros((C, bs, bs), **f64)
+    gHA = torch.zeros((C, bs), **f64)
+    gtab = torch.zeros(tab.shape, **f64)
+    gW = torch.zeros(W.shape, **f64)
+    gsn2 = torch.zeros((), **f64)
+    m_bar = torch.zeros((C, bs), dtype=dt_, device=dev)
+    zero_C = torch.zeros((C,), dtype=dt_, device=dev)
+    omd = 1.0 - damp
+    for t in range(T - 1, -1, -1):
+        if g_ms is not None:
+            m_bar = m_bar + g_ms[t].reshape(C, bs)
+        if t > 0:
+            m0, row = ms[t - 1], tab[car, id_next[t - 1]]
+        else:
+            m0, row = torch.zeros_like(m_bar), first
+        Ph, var = row[:, :bs], row[:, bs]
+        fmu = (HA * m0).sum(-1)
+        if do[t]:
+            # ---- re-derive the moment match and the site (as the forward) ----
+            mm = PlainMatch(y[t], fmu, var, W, xi, wn, sn2, link=mp.link,
+                            sq=mp.variant == "sq", sq_floor=torch.finfo(dt_).tiny,
+                            log_floor=log_floor)
+            dl, d2 = mm.dl, mm.d2
+            denom = 1.0 + d2 * var
+            r = -d2 / denom
+            q = (dl - fmu * d2) / denom
+            pre = omd * ttau[t] + damp * r
+            tt_t = torch.clamp_min(pre, 0.0)
+            tn_t = omd * tnu[t] + damp * q
+        else:
+            tt_t, tn_t = ttau[t], tnu[t]
+        te = tt_t if seen[t] else zero_C
+        z = te * var + 1.0
+        pos = te > 0.0
+        gain = torch.where(pos, (tn_t - te * fmu) / z, zero_C)
+        # ---- the mean update m = A m0 + Ph gain, backwards ----------------
+        g_gain = torch.where(pos, (Ph * m_bar).sum(-1), zero_C)
+        g_Ph = gain[:, None] * m_bar
+        gA += m_bar[:, :, None] * m0[:, None, :]
+        m0_bar = (At @ m_bar[..., None])[..., 0]
+        # ---- the gain (tn - te fmu) / (te var + 1) --------------------------
+        g_num = g_gain / z
+        g_z = -g_gain * gain / z
+        g_tn_all = g_num if g_tn is None else g_num + g_tn[t]
+        g_tt_all = zero_C if g_tt is None else g_tt[t]
+        if seen[t]:
+            g_tt_all = g_tt_all + (-g_num * fmu + g_z * var)
+        g_fmu = -g_num * te
+        g_var = g_z * te
+        if do[t]:
+            # ---- the damped site, clamped at 0 --------------------------------
+            g_r = torch.where(pre >= 0.0, damp * g_tt_all, zero_C)
+            g_q = damp * g_tn_all
+            g_den = -(g_q * q + g_r * r) / denom
+            g_dl = g_q / denom
+            g_d2 = -g_q * fmu / denom - g_r / denom + g_den * var
+            g_fmu = g_fmu - g_q * d2 / denom
+            g_var = g_var + g_den * d2
+            g_fmu, g_var, gW, gsn2 = mm.vjp(g_dl, g_d2, 0.0 if g_lZ is None else g_lZ[t],
+                                            g_fmu, g_var, gW, gsn2)
+        # ---- fmu = (h'A) m0; the row's cotangent to the row the step read -----
+        gHA += g_fmu[:, None] * m0
+        m0_bar = m0_bar + g_fmu[:, None] * HA
+        g_row = torch.cat([g_Ph, g_var[:, None]], dim=-1)
+        if t > 0:
+            gtab.index_put_((car, id_next[t - 1]), g_row.double(), accumulate=True)
+        else:
+            g_first = g_row
+        m_bar = m0_bar
+    # HA = H'A: its cotangent to A's and H's
+    gA += H.double()[:, :, None] * gHA[:, None, :]
+    gH = (A.double() @ gHA[..., None])[..., 0]
+    return gA.to(dt_), gH.to(dt_), g_first, gtab.to(dt_), gW.to(dt_), gsn2.to(dt_)
+
+
 def fused_ihgp_smooth_plain(ms, idx, A, Gn):
     """K6 reference: the steady RTS smoother on filtered means ms (T, C*bs),
     ms_k = G_k ms_{k+1} + (mf_k - G_k A mf_k) with G_k = Gn[c, idx_k] (ref
@@ -222,6 +337,95 @@ def fused_ihgp_adf(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn
     return ms, idx.long(), lZ, tt, tn
 
 
+def fused_ihgp_adf_vjp(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn2, ms, idx,
+                       tt, g_ms, g_lZ, g_tt, g_tn, *, mp: MomentParams, damp: float):
+    """K8: the reverse of K5's sweep (see ``fused_ihgp_adf_vjp_plain``): K5's
+    inputs, its outputs ms, idx and ttau and the cotangents of ms, lZ, ttau
+    and tnu (None = zero) to those of A, H, first, tab, W and sn2.  One
+    launch, one CTA."""
+    cots = (g_ms, g_lZ, g_tt, g_tn)
+    given = [x for x in cots if x is not None]
+    if _on_cpu(y, ttau, tnu, A, H, first, tab, W, sn2, ms, tt, *given):
+        return fused_ihgp_adf_vjp_plain(y, obs, match, ttau, tnu, A, H, first, tab, lk, W, sn2,
+                                        ms, idx, tt, g_ms, g_lZ, g_tt, g_tn, mp=mp, damp=damp)
+    from nsgp_tpu_torch.ops import _build
+
+    T = y.shape[0]
+    C, bs = H.shape
+    G = tab.shape[1]
+    D, N = mp.D, mp.N
+    dt_, dev = A.dtype, A.device
+    wn, xi = sigma_points(mp, dt_, dev)
+    S = wn.shape[0]
+    _check_shapes("fused_ihgp_adf_vjp", bs, T, y=(y, (T,)), ttau=(ttau, (T, C)),
+                  tnu=(tnu, (T, C)), A=(A, (C, bs, bs)), first=(first, (C, bs + 1)),
+                  tab=(tab, (C, G, bs + 1)), W=(W, (D, N)), sn2=(sn2.reshape(-1), (1,)),
+                  ms=(ms, (T, C * bs)), idx=(idx, (T, C)), tt=(tt, (T, C)),
+                  **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C * bs)), ("g_lZ", g_lZ, (T,)),
+                                               ("g_tt", g_tt, (T, C)), ("g_tn", g_tn, (T, C)))
+                     if x is not None})
+    _check_flags("fused_ihgp_adf_vjp", dev, T, obs=obs, match=match)
+    if idx.device != dev or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"fused_ihgp_adf_vjp: idx must be an integer tensor on {dev}")
+    lib = _build.library()
+    _check_adf("fused_ihgp_adf_vjp", lib, C, D, N, S, mp.link, mp.variant)
+    lk4 = torch.stack([lk.lo, lk.hi, lk.span, lk.shift]).to(dev, dt_)
+    args = [x.contiguous() for x in (y, (obs & match).to(dt_), obs.to(dt_), ttau, tnu, A, H,
+                                     first, tab, lk4, W, xi, wn, sn2.reshape(1), ms,
+                                     idx.to(torch.int32), tt)]
+    cots = [None if x is None else x.contiguous() for x in cots]
+    grads = [torch.empty(s, dtype=dt_, device=dev)
+             for s in ((C, bs, bs), (C, bs), (C, bs + 1), (C, G, bs + 1), (D, N), ())]
+    # the float64 sums of the cotangents, where shared memory cannot hold them
+    scratch = torch.empty((lib.nsgp_ihgp_adf_vjp_scratch(D, N, bs, G),), dtype=torch.float64,
+                          device=dev)
+    damp = float(damp)
+    _launch("fused_ihgp_adf_vjp", _by_dtype(lib, "nsgp_fused_ihgp_adf_vjp", dt_), bs,
+            *map(_ptr, args), *map(_opt_ptr, cots), damp, 1.0 - damp,
+            _log_floor(mp.z_floor, dt_), torch.finfo(dt_).tiny, T, D, N, S, G,
+            int(mp.link == "exp"), int(mp.variant == "sq"), *map(_ptr, grads), _ptr(scratch),
+            device=dev)
+    fused_ihgp_adf_vjp.launches += 1
+    return tuple(grads)
+
+
+class FusedIHGPADF(torch.autograd.Function):
+    """K5 forward, K8 backward: the steady ADF sweep differentiable in A, H,
+    first, tab, W and sn2 (y, the flags, the incoming sites and the grid get
+    none), once (K8 has no adjoint of its own).  On CPU tensors the two
+    plain twins.  ``kw`` holds mp and damp."""
+
+    @staticmethod
+    def forward(ctx, y, obs, match, ttau, tnu, A, H, first, tab, lk, W, sn2, kw):
+        ms, idx, lZ, tt, tn = fused_ihgp_adf(y, obs, match, ttau, tnu, A, H, first, tab, lk, W,
+                                             sn2, **kw)
+        ctx.save_for_backward(y, obs, match, ttau, tnu, A, H, first, tab, W, sn2, ms, idx, tt)
+        ctx.lk, ctx.kw = lk, kw
+        ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)
+        return ms, idx, lZ, tt, tn
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ms, _g_idx, g_lZ, g_tt, g_tn):
+        if any(ctx.needs_input_grad[i] for i in (0, 3, 4)):
+            raise NotImplementedError("FusedIHGPADF: y and the incoming sites get no gradient")
+        y, obs, match, ttau, tnu, A, H, first, tab, W, sn2, ms, idx, tt = ctx.saved_tensors
+        gA, gH, gfirst, gtab, gW, gsn2 = fused_ihgp_adf_vjp(
+            y, obs, match, ttau, tnu, A, H, first, tab, ctx.lk, W, sn2, ms, idx, tt, g_ms, g_lZ,
+            g_tt, g_tn, **ctx.kw)
+        return (None, None, None, None, None, gA, gH, gfirst, gtab, None, gW,
+                gsn2.reshape(sn2.shape), None)
+
+
+def fused_ihgp_adf_autograd(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn2, *,
+                            mp: MomentParams, damp: float):
+    """``fused_ihgp_adf`` under autograd, through ``FusedIHGPADF``: K5 forward
+    and K8 backward on the card, their plain twins on the CPU."""
+    return FusedIHGPADF.apply(y, obs, match, ttau, tnu, A, H, first, tab, lk, W, sn2,
+                              dict(mp=mp, damp=damp))
+
+
 def fused_ihgp_smooth(ms, idx, A, Gn):
     """K6: the steady smoother of the sequential form in one launch (see
     ``fused_ihgp_smooth_plain``)."""
@@ -245,7 +449,7 @@ def fused_ihgp_smooth(ms, idx, A, Gn):
     return sm
 
 
-WRAPPERS = (fused_ihgp_adf, fused_ihgp_smooth)
+WRAPPERS = (fused_ihgp_adf, fused_ihgp_smooth, fused_ihgp_adf_vjp)
 
 
 def reset_launches() -> None:

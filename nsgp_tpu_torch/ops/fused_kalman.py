@@ -416,6 +416,103 @@ _DLINK = {  # d link / dx from x and link(x)
 }
 
 
+class PlainMatch:
+    """One step's cubature moment match written out for its reverse, the
+    piece that the plain versions of K7 and K8 share.
+
+    The constructor re-derives the totals of the sigma points at the cavity
+    (fmu, var) (C,) and the first two derivatives of log Z, ``dl`` and
+    ``d2``; ``vjp`` runs them backwards.  The max shift is a constant (it
+    carries no gradient), clamps pass the cotangent where they do not bind
+    (torch's ``>=`` rule): sqrt(max(s2_g, 0)), the 'sq' amplitude's floor
+    ``sq_floor``, the raw-scale Z floor and Z's tiny floor.
+    """
+
+    def __init__(self, y_t, fmu, var, W, xi, wn, sn2, *, link, sq, sq_floor, log_floor):
+        D = W.shape[0]
+        self.D, self.W, self.xi, self.xi2 = D, W, xi, xi * xi
+        self.link, self.sq, self.sq_floor, self.log_floor = link, sq, sq_floor, log_floor
+        self.tiny = tiny = torch.finfo(fmu.dtype).tiny
+        self.mu_z, mu_g, self.s2_z, self.s2_g = fmu[:D], fmu[D:], var[:D], var[D:]
+        self.sd = sd = torch.sqrt(torch.clamp_min(self.s2_g, 0.0))
+        self.xn = xn = mu_g + sd * xi  # (S, N)
+        self.lk = lk = LINKS[link](xn)
+        self.a_raw = a_raw = lk @ W.T  # (S, D)
+        self.a = a = torch.sqrt(torch.clamp_min(a_raw, sq_floor)) if sq else a_raw
+        self.a2 = a2 = a * a
+        s2e = sn2 + a2 @ self.s2_z
+        resid = y_t - a @ self.mu_z
+        self.inv = inv = 1.0 / s2e
+        self.rs = rs = resid * inv
+        log_norm = -0.5 * (resid * rs + torch.log(s2e) + _LOG2PI)
+        lmax = log_norm.max()
+        lmax = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
+        self.wns = wns = wn * torch.exp(log_norm - lmax)
+        self.Z = Z = wns.sum()
+        self.c2 = c2 = rs * rs - inv
+        self.X1, self.X2 = wns @ xi, wns @ self.xi2  # the unit point's weighted moments
+        self.is2 = is2 = 1.0 / self.s2_g
+        self.rg = rg = sd * is2
+        self.S1 = S1 = torch.cat([(wns * rs) @ a, rg * self.X1])
+        self.S2 = S2 = torch.cat([(wns * c2) @ a2, rg * rg * self.X2 - is2 * Z])
+        self.Z0 = Z0 = torch.clamp_min(Z, tiny)
+        self.lZ_raw = lZ_raw = lmax + torch.log(Z0)
+        lZk = torch.clamp_min(lZ_raw, log_floor)
+        self.e = e = torch.exp(lZ_raw - lZk)
+        self.Zi = Zi = e / Z0
+        self.dl = dl = Zi * S1
+        self.d2 = Zi * S2 - dl * dl
+
+    def vjp(self, g_dl, g_d2, g_lZ_t, g_fmu, g_var, gW, gsn2):
+        """The cotangents of dl, d2 and of the step's lZ (a number or a 0-d
+        tensor) added to those of fmu and var (C,), W's (float64) and
+        sn2's: returns (g_fmu, g_var, gW, gsn2)."""
+        D, W, xi, xi2 = self.D, self.W, self.xi, self.xi2
+        sd, is2, rg, Z, Zi = self.sd, self.is2, self.rg, self.Z, self.Zi
+        a, a2, rs, inv, c2, wns = self.a, self.a2, self.rs, self.inv, self.c2, self.wns
+        # ---- the derivatives of log Z from the totals ----------------------
+        g_dl = g_dl - 2.0 * self.dl * g_d2
+        g_S1, g_S2 = g_dl * Zi, g_d2 * Zi
+        g_Zi = (g_d2 * self.S2 + g_dl * self.S1).sum()
+        gA1, gA2 = g_S1[:D], g_S2[:D]
+        gX1, gX2 = g_S1[D:] * rg, g_S2[D:] * rg * rg
+        g_rg = g_S1[D:] * self.X1 + 2.0 * rg * g_S2[D:] * self.X2
+        g_is2 = g_rg * sd - g_S2[D:] * Z
+        g_sd = g_rg * is2
+        g_Z = -(is2 * g_S2[D:]).sum()
+        g_var = torch.cat([g_var[:D], g_var[D:] - g_is2 * is2 * is2])
+        # lZk = max(lmax + log Z0, log_floor), Zi = exp(lZ_raw - lZk) / Z0
+        Z0, e = self.Z0, self.e
+        g_e = g_Zi / Z0
+        g_Z0 = -g_Zi * Zi / Z0
+        g_lZk = g_lZ_t - g_e * e
+        g_raw = g_e * e + torch.where(self.lZ_raw >= self.log_floor, g_lZk,
+                                      torch.zeros_like(g_lZk))
+        g_Z0 = g_Z0 + g_raw / Z0
+        g_Z = g_Z + torch.where(Z >= self.tiny, g_Z0, torch.zeros_like(g_Z0))
+        # ---- the sigma points ----------------------------------------------
+        u1, u2 = a @ gA1, a2 @ gA2
+        ux = xi @ gX1 + xi2 @ gX2
+        g_wns = g_Z + rs * u1 + c2 * u2 + ux
+        g_rs = wns * (u1 + 2.0 * rs * u2)
+        g_inv = -wns * u2
+        g_ln = g_wns * wns
+        g_resid = g_rs * inv - g_ln * rs
+        g_s2e = 0.5 * g_ln * c2 - g_rs * rs * inv - g_inv * inv * inv
+        gsn2 = gsn2 + g_s2e.sum()
+        g_a = ((wns * rs)[:, None] * gA1 + 2.0 * (wns * c2)[:, None] * gA2 * a
+               - g_resid[:, None] * self.mu_z + 2.0 * g_s2e[:, None] * a * self.s2_z)
+        if self.sq:
+            g_a = torch.where(self.a_raw >= self.sq_floor, g_a * 0.5 / a, torch.zeros_like(g_a))
+        gW = gW + g_a.T @ self.lk
+        g_xn = (g_a @ W) * _DLINK[self.link](self.xn, self.lk)
+        g_sd = g_sd + (g_xn * xi).sum(0)
+        g_var = g_var + torch.cat([g_s2e @ a2, torch.where(
+            self.s2_g >= 0.0, g_sd * 0.5 / sd, torch.zeros_like(sd))])
+        g_fmu = g_fmu + torch.cat([-(g_resid @ a), g_xn.sum(0)])
+        return g_fmu, g_var, gW, gsn2
+
+
 def fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_lZ, g_tt,
                         g_tn, *, damp, link, variant, z_floor):
     """K7 reference: the vector-Jacobian product of ``fused_adf_plain``.
@@ -427,24 +524,19 @@ def fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_P
     A reverse loop over t = T-1 .. 0 in the kernel's step order: step t is
     re-derived from the stored (ms, Ps)[t-1] ((0, Pinf) at t = 0), then run
     backwards through the update, the damped site, the derivatives of log Z,
-    the cubature totals and their sigma points (one pass over the points),
-    the observation and the prediction.  The max shift is a constant (it
-    carries no gradient), clamps pass the cotangent where they do not bind
-    (torch's ``>=`` rule), and the parameter cotangents are summed over T in
-    float64 whatever the dtype.
+    the cubature totals and their sigma points (one pass over the points,
+    ``PlainMatch``), the observation and the prediction.  The max shift is a
+    constant (it carries no gradient), clamps pass the cotangent where they
+    do not bind (torch's ``>=`` rule), and the parameter cotangents are
+    summed over T in float64 whatever the dtype.
     """
     T = y.shape[0]
     C, bs = H.shape
-    D = W.shape[0]
     dt_, dev = A.dtype, A.device
     f64 = dict(dtype=torch.float64, device=dev)
-    lk_fn, dlk_fn = LINKS[link], _DLINK[link]
-    sq = variant == "sq"
     At = A.transpose(-1, -2)
-    tiny = torch.finfo(dt_).tiny
     log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
     observed = (obs > 0).tolist()
-    xi2 = xi * xi
     gA = torch.zeros((C, bs, bs), **f64)
     gQ = torch.zeros((C, bs, bs), **f64)
     gH = torch.zeros((C, bs), **f64)
@@ -466,35 +558,9 @@ def fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_P
         g_tn_t = zero_C if g_tn is None else g_tn[t]
         if observed[t]:
             # ---- re-derive the moment match of step t (as fused_adf_plain) --
-            mu_z, mu_g, s2_z, s2_g = fmu[:D], fmu[D:], var[:D], var[D:]
-            sd = torch.sqrt(torch.clamp_min(s2_g, 0.0))
-            xn = mu_g + sd * xi  # (S, N)
-            lk = lk_fn(xn)
-            a_raw = lk @ W.T  # (S, D)
-            a = torch.sqrt(torch.clamp_min(a_raw, 1e-12)) if sq else a_raw
-            a2 = a * a
-            s2e = sn2 + a2 @ s2_z
-            resid = y[t] - a @ mu_z
-            inv = 1.0 / s2e
-            rs = resid * inv
-            log_norm = -0.5 * (resid * rs + torch.log(s2e) + _LOG2PI)
-            lmax = log_norm.max()
-            lmax = torch.where(torch.isfinite(lmax), lmax, torch.zeros_like(lmax))
-            wns = wn * torch.exp(log_norm - lmax)
-            Z = wns.sum()
-            c2 = rs * rs - inv
-            X1, X2 = wns @ xi, wns @ xi2  # the unit point's weighted moments
-            is2 = 1.0 / s2_g
-            rg = sd * is2
-            S1 = torch.cat([(wns * rs) @ a, rg * X1])
-            S2 = torch.cat([(wns * c2) @ a2, rg * rg * X2 - is2 * Z])
-            Z0 = torch.clamp_min(Z, tiny)
-            lZ_raw = lmax + torch.log(Z0)
-            lZk = torch.clamp_min(lZ_raw, log_floor)
-            e = torch.exp(lZ_raw - lZk)
-            Zi = e / Z0
-            dl = Zi * S1
-            d2 = Zi * S2 - dl * dl
+            mm = PlainMatch(y[t], fmu, var, W, xi, wn, sn2, link=link, sq=variant == "sq",
+                            sq_floor=1e-12, log_floor=log_floor)
+            dl, d2 = mm.dl, mm.d2
             denom = 1.0 + d2 * var
             r = -d2 / denom
             tt = torch.clamp_min(damp * r, 0.0)
@@ -523,44 +589,8 @@ def fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_P
             g_d2 = -damp * g_tn_all * fmu / denom - g_r / denom + g_den * var
             g_fmu = g_fmu - damp * g_tn_all * d2 / denom
             g_var = g_var + g_den * d2
-            # ---- the derivatives of log Z from the totals ------------------
-            g_dl = g_dl - 2.0 * dl * g_d2
-            g_S1, g_S2 = g_dl * Zi, g_d2 * Zi
-            g_Zi = (g_d2 * S2 + g_dl * S1).sum()
-            gA1, gA2 = g_S1[:D], g_S2[:D]
-            gX1, gX2 = g_S1[D:] * rg, g_S2[D:] * rg * rg
-            g_rg = g_S1[D:] * X1 + 2.0 * rg * g_S2[D:] * X2
-            g_is2 = g_rg * sd - g_S2[D:] * Z
-            g_sd = g_rg * is2
-            g_Z = -(is2 * g_S2[D:]).sum()
-            g_var = torch.cat([g_var[:D], g_var[D:] - g_is2 * is2 * is2])
-            # lZk = max(lmax + log Z0, log_floor), Zi = exp(lZ_raw - lZk) / Z0
-            g_e = g_Zi / Z0
-            g_Z0 = -g_Zi * Zi / Z0
-            g_lZk = (0.0 if g_lZ is None else g_lZ[t]) - g_e * e
-            g_raw = g_e * e + torch.where(lZ_raw >= log_floor, g_lZk, torch.zeros_like(g_lZk))
-            g_Z0 = g_Z0 + g_raw / Z0
-            g_Z = g_Z + torch.where(Z >= tiny, g_Z0, torch.zeros_like(g_Z0))
-            # ---- the sigma points ------------------------------------------
-            u1, u2 = a @ gA1, a2 @ gA2
-            ux = xi @ gX1 + xi2 @ gX2
-            g_wns = g_Z + rs * u1 + c2 * u2 + ux
-            g_rs = wns * (u1 + 2.0 * rs * u2)
-            g_inv = -wns * u2
-            g_ln = g_wns * wns
-            g_resid = g_rs * inv - g_ln * rs
-            g_s2e = 0.5 * g_ln * c2 - g_rs * rs * inv - g_inv * inv * inv
-            gsn2 = gsn2 + g_s2e.sum()
-            g_a = ((wns * rs)[:, None] * gA1 + 2.0 * (wns * c2)[:, None] * gA2 * a
-                   - g_resid[:, None] * mu_z + 2.0 * g_s2e[:, None] * a * s2_z)
-            if sq:
-                g_a = torch.where(a_raw >= 1e-12, g_a * 0.5 / a, torch.zeros_like(g_a))
-            gW = gW + g_a.T @ lk
-            g_xn = (g_a @ W) * dlk_fn(xn, lk)
-            g_sd = g_sd + (g_xn * xi).sum(0)
-            g_var = g_var + torch.cat([g_s2e @ a2, torch.where(
-                s2_g >= 0.0, g_sd * 0.5 / sd, torch.zeros_like(sd))])
-            g_fmu = g_fmu + torch.cat([-(g_resid @ a), g_xn.sum(0)])
+            g_fmu, g_var, gW, gsn2 = mm.vjp(g_dl, g_d2, 0.0 if g_lZ is None else g_lZ[t],
+                                            g_fmu, g_var, gW, gsn2)
         # ---- the observation fmu = H mp, PH = Pp H, var = H' PH -----------
         g_PH = g_PH + g_var[:, None] * H
         g_Hs = g_var[:, None] * PH + g_fmu[:, None] * mp + (g_PH[:, None, :] @ Pp)[:, 0]

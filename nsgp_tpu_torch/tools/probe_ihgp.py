@@ -11,10 +11,10 @@ later-sweep passes with fixed sites (the sequential filter that re-matches
 the last site (K5), the sequential smoother (K6), the blocked filter and
 smoother at chunk
 2048, the one-level log-depth filter and smoother where T <= 20 000), and
-the all-T re-site, each in s and sweep 1 also in us per step; then the CUDA
-kernels and the device-busy time per step of ``ihgp_energy``'s sweep, K5's
-plain twin, a loop over T (``torch.profiler`` over T = 64 steps).  One JSON line per T, after the card's name and power
-limit.
+the all-T re-site, each in s and sweep 1 also in us per step.  One JSON
+line per T, after the card's name and power limit.  ``ihgp_energy``'s value
+and gradient (K5 and its adjoint K8) is measured by ``chip_smoke.py``
+phase 8f.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import bench_inputs  # noqa: E402
 from nsgp_tpu_torch.inference import ihgp  # noqa: E402
-from nsgp_tpu_torch.ops import fused_ihgp as fih  # noqa: E402
 from nsgp_tpu_torch.ops.kalman import Sites  # noqa: E402
 
 CFG = ihgp.IHGPConfig(ep_itts=3, damping=(0.1,), moment_chunk=8192)  # bench.py's ihgp-seq
@@ -46,30 +45,6 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def sweep1_kernels_per_step(model, params, y, T=64):
-    """CUDA kernels and device-busy us per step of the energy's sweep (K5's
-    plain twin), and the traced wall us per step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ssm = model.build_ssm(params)
-    tables = ihgp.build_tables(ssm, CFG)
-    zeros = torch.zeros((T, ssm.num_channels), dtype=y.dtype, device=y.device)
-    mask = torch.ones(T, dtype=torch.bool, device=y.device)
-    run = lambda: ihgp._steady_filter_seq(ssm, tables, y[:T], mask, Sites(zeros, zeros),
-                                          model.moment_params(), params.W, params.lik, 0.1, mask,
-                                          sweep=fih.fused_ihgp_adf_plain)
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall = 1e6 * (time.perf_counter() - t0) / T
-    cuda = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(ev.count for ev in cuda) / T, sum(ev.self_device_time_total for ev in cuda) / T,
-            wall)
 
 
 def probe(T: int, dev=torch.device("cuda")) -> dict:
@@ -107,9 +82,6 @@ def probe(T: int, dev=torch.device("cuda")) -> dict:
         mu, var = sm @ Hm, tables.hPSh[torch.arange(C, device=dev), ib]
         _, out["resite_s"] = timed(lambda: ihgp._resite(
             model.moment_params(), params, CFG, y, mask, mu, var, sites, CFG.damp(1)))
-    k, busy, wall = sweep1_kernels_per_step(model, params, y)
-    out.update(sweep1_kernels_per_step=k, sweep1_device_busy_us_per_step=busy,
-               sweep1_traced_us_per_step=wall)
     return out
 
 

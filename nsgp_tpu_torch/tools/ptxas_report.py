@@ -19,7 +19,8 @@ import time
 from nsgp_tpu_torch.ops import _build
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-_KERNEL = re.compile(r"((?:fused_adf_vjp|fused_adf_mb|fused_adf|fused_ihgp_adf|fused_ihgp_smooth"
+_KERNEL = re.compile(r"((?:fused_adf_vjp|fused_adf_mb|fused_adf|fused_ihgp_adf_vjp|fused_ihgp_adf"
+                     r"|fused_ihgp_smooth"
                      r"|(?:fwd|bwd)_(?:totals|carry|emit))_kernel)"
                      r"I([fd])Li(\d+)E")
 

@@ -25,7 +25,8 @@ def test_sources_are_every_cu_file_and_headers_are_not_compiled():
             "fused_bwd_f64.cu", "fused_adf_f32.cu", "fused_adf_f64.cu", "fused_adf_mb_f32.cu",
             "fused_adf_mb_f64.cu", "adf_info.cu", "fused_ihgp_adf_f32.cu",
             "fused_ihgp_adf_f64.cu", "fused_ihgp_smooth_f32.cu", "fused_ihgp_smooth_f64.cu",
-            "fused_adf_vjp_f32.cu", "fused_adf_vjp_f64.cu"} <= names
+            "fused_adf_vjp_f32.cu", "fused_adf_vjp_f64.cu", "fused_ihgp_adf_vjp_f32.cu",
+            "fused_ihgp_adf_vjp_f64.cu"} <= names
     assert not any(n.endswith(".cuh") for n in names)
 
 
@@ -33,7 +34,8 @@ def test_sources_are_every_cu_file_and_headers_are_not_compiled():
                                   "fused_adf_mb.cuh", "fused_fwd_f32.cu", "adf_info.cu",
                                   "fused_kalman.cuh", "fused_bwd_f64.cu", "fused_ihgp_adf.cuh",
                                   "fused_ihgp_smooth.cuh", "fused_adf_vjp.cuh",
-                                  "fused_adf_vjp_f32.cu"])
+                                  "fused_adf_vjp_f32.cu", "fused_ihgp_adf_vjp.cuh",
+                                  "fused_ihgp_adf_vjp_f64.cu"])
 def test_library_name_follows_every_file_under_csrc(csrc_copy, name):
     before = _build.library_path()
     with open(csrc_copy / name, "a") as f:

@@ -771,7 +771,8 @@ def test_ihgp_energy_gradient_card_matches_cpu(cuda):
     energy = lambda p, dev: ihgp_energy(model, p, y, None, device=dev)
     fih.reset_launches()
     card = _grads(energy, params, cuda)
-    assert fih.fused_ihgp_adf.launches == 0  # autograd runs through the plain twin
+    # the sweep through FusedIHGPADF: K5 forward, K8 backward, once each
+    assert (fih.fused_ihgp_adf.launches, fih.fused_ihgp_adf_vjp.launches) == (1, 1)
     assert all(bool(torch.isfinite(g).all()) for g in card)
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
 
@@ -917,6 +918,102 @@ def test_ihgp_wrappers_refuse_what_they_cannot_run(cuda):
     zeros = torch.zeros((y.shape[0], model.D + model.N), dtype=y.dtype, device=cuda)
     with pytest.raises(ValueError, match="bool"):
         _steady_pass(model, params, y, ones, (zeros, zeros), ones > 0)
+
+
+def _ihgp_vjp_pair(model, params, y, mask, sites, match, only_lZ=False, seed=7):
+    """K8 and its twin on the same inputs: K5's outputs on the card (the
+    forward's indices for both) and seeded normal cotangents on ms, lZ, ttau
+    and tnu (or on lZ alone)."""
+    from nsgp_tpu_torch.inference import ihgp
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    ssm = model.build_ssm(params)
+    tables = ihgp.build_tables(ssm, ihgp.IHGPConfig(grid_lo=-7.0), smoother=False)
+    H = ssm.H
+    tab = torch.cat([tables.Ph, tables.hPph[..., None]], dim=-1)
+    first = torch.cat([(ssm.Pinf @ H[..., None])[..., 0],
+                       torch.einsum("ci,cij,cj->c", H, ssm.Pinf, H)[:, None]], dim=-1)
+    args = (y, mask, match, *sites, ssm.A, H, first, tab, fih.lookup_consts(tables.log_r),
+            params.W, params.lik)
+    kw = dict(mp=model.moment_params(), damp=0.5)
+    ms, idx, lZ, tt, tn = fih.fused_ihgp_adf(*args, **kw)
+    rng = np.random.default_rng(seed)
+    g = [torch.tensor(rng.normal(size=tuple(o.shape)), dtype=y.dtype, device=y.device)
+         for o in (ms, lZ, tt, tn)]
+    if only_lZ:
+        g = [None, g[1], None, None]
+    kern = lambda: fih.fused_ihgp_adf_vjp(*args, ms, idx, tt, *g, **kw)
+    plain = lambda: fih.fused_ihgp_adf_vjp_plain(*args, ms, idx, tt, *g, **kw)
+    return kern, plain, (args, (ms, idx, tt), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D,N,k1,k2,link,variant,case,steps", [
+    (16, 3, "matern32", "matern52", "softplus", "amp", "adf", 64),  # the headline width, bs 4
+    (16, 3, "matern32", "matern52", "exp", "sq", "lZ", 64),
+    (3, 2, "exp", "matern32", "softplus", "sq", "later", 64),  # bs 3, fixed sites, last matched
+    (3, 4, "exp", "exp", "exp", "amp", "adf", 48),  # bs 1, 193 sigma points: two rounds
+    (48, 9, "exp", "matern52", "softplus", "sq", "adf", 12),  # mixture width: 3973 points
+])
+def test_ihgp_adf_vjp_kernel_matches_plain(cuda, D, N, k1, k2, link, variant, case, steps, dtype):
+    """K8, the reverse of K5's sweep (the backward of ``FusedIHGPADF``),
+    against its plain twin on K5's outputs, with a NaN gap: all four
+    cotangents or lZ's alone; a later pass of the sequential form (fixed
+    non-zero sites on the unobserved steps, a third exactly 0, the last step
+    matched).  At mixture width one CTA walks the points in rounds and the
+    table's sums live in the scratch.  float32 is held to chip_smoke.py's
+    bar (1e-3): the reverse sums T steps of float32 cotangents."""
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    model, pB, _, _ = _files(1, D, N, dtype, cuda, link, variant, k1=k1, k2=k2, steps=steps)
+    params = pB.select(0)
+    y, mask = _gap_signal(model, params, steps, seed=4)
+    C = D + N
+    match = torch.ones(steps, dtype=torch.bool, device=cuda)
+    sites = [torch.zeros((steps, C), dtype=dtype, device=cuda)] * 2
+    if case == "later":
+        rng = np.random.default_rng(11)
+        tt = rng.uniform(0.0, 40.0, (steps, C)) * (rng.uniform(size=(steps, C)) > 0.33)
+        sites = [torch.tensor(x, dtype=dtype, device=cuda)
+                 for x in (tt, rng.normal(size=(steps, C)) * tt)]
+        match[:-1] = False
+    kern, plain, _ = _ihgp_vjp_pair(model, params, torch.nan_to_num(y), mask, sites, match,
+                                    only_lZ=case == "lZ")
+    fih.reset_launches()
+    got = kern()
+    assert fih.fused_ihgp_adf_vjp.launches == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, kern()))  # the same bits twice
+    ref = plain()
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel(got, ref) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+
+
+@pytest.mark.cuda
+def test_ihgp_adf_vjp_refuses_what_it_cannot_run(cuda):
+    from nsgp_tpu_torch.ops import fused_ihgp as fih
+
+    model, params, y = _ihgp_case()
+    y = torch.nan_to_num(y).to(cuda)
+    steps, C = y.shape[0], model.D + model.N
+    seen = torch.ones(steps, dtype=torch.bool, device=cuda)
+    zeros = torch.zeros((steps, C), dtype=y.dtype, device=cuda)
+    _, _, (args, (ms, idx, tt), kw) = _ihgp_vjp_pair(model, params.on(cuda), y, seen,
+                                                     (zeros, zeros), seen)
+    g = torch.ones(steps, dtype=y.dtype, device=cuda)
+    run = lambda *rest, a=args: fih.fused_ihgp_adf_vjp(*a, *rest, **kw)
+    with pytest.raises(ValueError, match="g_lZ has shape"):
+        run(ms, idx, tt, None, g[:-1], None, None)
+    with pytest.raises(ValueError, match="idx has shape"):
+        run(ms, idx[:-1], tt, None, g, None, None)
+    with pytest.raises(TypeError):  # one dtype, float32 or float64
+        run(ms, idx, tt, None, g.float(), None, None)
+    with pytest.raises(ValueError, match="one device"):
+        run(ms, idx, tt, None, g.cpu(), None, None)
+    with pytest.raises(ValueError, match="bool"):  # float flags
+        run(ms, idx, tt, None, g, None, None, a=(args[0], g) + args[2:])
+    assert fih.fused_ihgp_adf_vjp(*args, ms, idx, tt, None, g, None, None, **kw)[0].is_cuda
 
 
 def _speechlike_signal(T, seed=21):

@@ -34,7 +34,7 @@ from nsgp_tpu_torch.apps import missing_data, source_sep
 from nsgp_tpu_torch.inference import batched, giekf, hmc, ihgp, learn, registry
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models import mixture
-from nsgp_tpu_torch.models.gtnmf import GTNMFModel, sample_prior, stack_params
+from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import (_build, bscan, cubature, dare, fused_kalman, kalman, kernels,
                                 moments, pscan, ssm)
 from nsgp_tpu_torch.utils import device, metrics, precision
@@ -54,6 +54,9 @@ for kw in ({}, {"parallel": True, "chunk": 24}, {"parallel": True, "chunk": 0}):
                         device="cpu")
     assert torch.isfinite(r.nlZ).all() and (r.Varft > 0).all()
 assert torch.isfinite(registry.energy("ihgp", model, params, y[:12], device="cpu"))
+leaves = {k: v.clone().requires_grad_(True) for k, v in params.named_buffers()}
+e = ihgp.ihgp_energy(model, GTNMFParams(**leaves), y[:12], device="cpu")  # K5's and K8's twins
+assert all(torch.isfinite(g).all() for g in torch.autograd.grad(e, list(leaves.values())))
 assert torch.isfinite(dare.dare_filter(torch.eye(2) * 0.9, torch.ones(2), torch.eye(2), 0.1)).all()
 ssm_ = model.build_ssm(params)
 tt = torch.rand(40, ssm_.num_channels, dtype=torch.float64)
