@@ -15,6 +15,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.models.mixture import channel_contributions
 from nsgp_tpu_torch.utils import metrics
 from nsgp_tpu_torch.utils.device import resolve_device
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 
 def make_gap_mask(T: int, gaps: Sequence[tuple]) -> torch.Tensor:
@@ -49,6 +50,7 @@ def _child_generators(generator: Optional[torch.Generator], n: int, device):
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
+@spanned("nsgp.fill_gaps_batch")
 def fill_gaps_batch(
     model: GTNMFModel,
     paramsB: GTNMFParams,  # buffers with a leading (BF,) file axis
@@ -68,23 +70,25 @@ def fill_gaps_batch(
     package (about 0.7 GB a file in float32 at music length)."""
     from nsgp_tpu_torch.inference import batched as bt
 
-    dev = resolve_device(device)
-    paramsB = paramsB.on(dev)
-    y_trueB, maskB = y_trueB.to(dev), maskB.to(dev)
-    y_obsB = torch.where(maskB, y_trueB, torch.full_like(y_trueB, float("nan")))
+    with span("nsgp.assemble"):
+        dev = resolve_device(device)
+        paramsB = paramsB.on(dev)
+        y_trueB, maskB = y_trueB.to(dev), maskB.to(dev)
+        y_obsB = torch.where(maskB, y_trueB, torch.full_like(y_trueB, float("nan")))
     res = bt.infer_batch(engine, model, paramsB, y_obsB, maskB, device=dev, **engine_kwargs)
 
-    BF = y_trueB.shape[0]
-    gens = _child_generators(generator, BF, dev)
-    y_hatB = torch.stack([
-        reconstruct_signal(model, paramsB.select(b), res.Eft[b], res.Varft[b], gens[b],
-                           n_samples)
-        for b in range(BF)])
-    gapB = ~maskB if metric_gapsB is None else metric_gapsB.to(dev)
-    if hasattr(res, "ms") and hasattr(res, "Ps"):
-        res = res._replace(ms=None, Ps=None)
-    return GapFillResult(y_hat=y_hatB, rmse_gaps=metrics.rmse(y_trueB, y_hatB, gapB),
-                         snr_gaps=metrics.snr_db(y_trueB, y_hatB, gapB), result=res)
+    with span("nsgp.readout"):
+        BF = y_trueB.shape[0]
+        gens = _child_generators(generator, BF, dev)
+        y_hatB = torch.stack([
+            reconstruct_signal(model, paramsB.select(b), res.Eft[b], res.Varft[b], gens[b],
+                               n_samples)
+            for b in range(BF)])
+        gapB = ~maskB if metric_gapsB is None else metric_gapsB.to(dev)
+        if hasattr(res, "ms") and hasattr(res, "Ps"):
+            res = res._replace(ms=None, Ps=None)
+        return GapFillResult(y_hat=y_hatB, rmse_gaps=metrics.rmse(y_trueB, y_hatB, gapB),
+                             snr_gaps=metrics.snr_db(y_trueB, y_hatB, gapB), result=res)
 
 
 def fill_gaps(

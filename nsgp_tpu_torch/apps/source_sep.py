@@ -15,6 +15,7 @@ from nsgp_tpu_torch.models import mixture
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, stack_params
 from nsgp_tpu_torch.utils import metrics
 from nsgp_tpu_torch.utils.device import resolve_device
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 
 class SeparationResult(NamedTuple):
@@ -23,6 +24,7 @@ class SeparationResult(NamedTuple):
     result: object
 
 
+@spanned("nsgp.separate")
 def separate(
     models: Sequence[GTNMFModel],
     params: Sequence[GTNMFParams],
@@ -43,10 +45,11 @@ def separate(
     0 on the compute device)."""
     from nsgp_tpu_torch.inference import registry
 
-    dev = resolve_device(device)
-    jm, jp, slices = mixture.join_models(models, [p.on(dev) for p in params],
-                                         lik=mixture_lik)
-    y_mix = y_mix.to(dev)
+    with span("nsgp.assemble"):
+        dev = resolve_device(device)
+        jm, jp, slices = mixture.join_models(models, [p.on(dev) for p in params],
+                                             lik=mixture_lik)
+        y_mix = y_mix.to(dev)
     if engine == "ep" and engine_kwargs.get("backend") == "fused":
         # The joint model (J=3: 48 subbands + 9 modulators, 3973 ut9 sigma
         # points) goes through the batched engine at BF=1: its ADF kernel
@@ -62,10 +65,12 @@ def separate(
     else:
         res = registry.infer(engine, jm, jp, y_mix, None, device=dev, **engine_kwargs)
 
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    sources = mixture.source_signals(jm, jp, slices, res.Eft, res.Varft, generator, n_samples)
-    snr = None
-    if true_sources is not None:
-        snr = metrics.snr_db(true_sources.to(dev).T, sources.T)
+    with span("nsgp.readout"):
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        sources = mixture.source_signals(jm, jp, slices, res.Eft, res.Varft, generator,
+                                         n_samples)
+        snr = None
+        if true_sources is not None:
+            snr = metrics.snr_db(true_sources.to(dev).T, sources.T)
     return SeparationResult(sources=sources, snr=snr, result=res)

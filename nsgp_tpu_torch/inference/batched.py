@@ -46,6 +46,7 @@ from nsgp_tpu_torch.ops.moments import LINKS
 from nsgp_tpu_torch.ops.ssm import flatten_files
 from nsgp_tpu_torch.utils.device import resolve_device
 from nsgp_tpu_torch.utils.precision import full_fp32
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 
 class BatchEPResult(NamedTuple):
@@ -71,6 +72,7 @@ def _marginals(H, ms, Ps, BF: int):
     return _per_file(mu, BF), _per_file(var, BF)
 
 
+@spanned("nsgp.ep_infer_batch")
 def ep_infer_batch(
     model: GTNMFModel,
     paramsB: GTNMFParams,  # buffers with a leading (BF,) file axis
@@ -83,13 +85,22 @@ def ep_infer_batch(
     ``ep_infer`` with the same backend."""
     ep_mod._check_config(config)
     full_fp32()
-    dev = resolve_device(device)
-    paramsB = paramsB.on(dev)
-    yB = yB.to(dev)
-    maskB = ~torch.isnan(yB) if maskB is None else maskB.to(dev, torch.bool)
-    BF, T = yB.shape
+    fused = config.backend == "fused"
+    with span("nsgp.assemble"):
+        dev = resolve_device(device)
+        paramsB = paramsB.on(dev)
+        yB = yB.to(dev)
+        maskB = ~torch.isnan(yB) if maskB is None else maskB.to(dev, torch.bool)
+        BF, T = yB.shape
+        if fused:
+            ssmB = model.build_ssm_batch(paramsB)
+            flat = flatten_files(ssmB)
+            pad = torch.diagonal(flat.pad_eye, dim1=-2, dim2=-1)
+            dtype = ssmB.A.dtype
+            yB = torch.nan_to_num(yB).to(dtype)
+            bs = ssmB.block_size
 
-    if config.backend != "fused":
+    if not fused:
         rs = [ep_mod.ep_infer(model, paramsB.select(b), yB[b], maskB[b], config, device=dev)
               for b in range(BF)]
         stack = lambda xs: torch.stack(list(xs))
@@ -98,13 +109,6 @@ def ep_infer_batch(
             nlZ=stack(r.nlZ for r in rs), maxdiff=stack(r.maxdiff for r in rs),
             sites=Sites(stack(r.sites.ttau for r in rs), stack(r.sites.tnu for r in rs)))
 
-    ssmB = model.build_ssm_batch(paramsB)
-    flat = flatten_files(ssmB)
-    pad = torch.diagonal(flat.pad_eye, dim1=-2, dim2=-1)
-    dtype = ssmB.A.dtype
-    yB = torch.nan_to_num(yB).to(dtype)
-    bs = ssmB.block_size
-
     def smooth(ms_f, Ps_f):
         """Smoother kernel over all files' channels -> per-file marginals."""
         ms, Ps = fused_kalman.fused_bwd(ms_f.reshape(T, -1, bs), Ps_f.reshape(T, -1, bs, bs),
@@ -112,30 +116,34 @@ def ep_infer_batch(
         return _marginals(flat.H, ms, Ps, BF)
 
     # ---- sweep 1: batched ADF + smoother -------------------------------------
-    ms_f, Ps_f, lZ, sites = fused_kalman.adf_filter_fused_mb(
-        model.moment_params(), ssmB, paramsB.W, paramsB.lik, yB.T, maskB.T,
-        config.damp(0), config.s_chunk)
-    mu, var = smooth(ms_f, Ps_f)
-    tt, tn = _per_file(sites.ttau, BF), _per_file(sites.tnu, BF)
-    nlZ = [-lZ.sum(0)]
-    maxdiff = [torch.full((BF,), float("inf"), dtype=dtype, device=dev)]
+    with span("nsgp.sweep1"):
+        ms_f, Ps_f, lZ, sites = fused_kalman.adf_filter_fused_mb(
+            model.moment_params(), ssmB, paramsB.W, paramsB.lik, yB.T, maskB.T,
+            config.damp(0), config.s_chunk)
+        mu, var = smooth(ms_f, Ps_f)
+        tt, tn = _per_file(sites.ttau, BF), _per_file(sites.tnu, BF)
+        nlZ = [-lZ.sum(0)]
+        maxdiff = [torch.full((BF,), float("inf"), dtype=dtype, device=dev)]
 
     # ---- sweeps >= 2: re-site per file, then filter + smoother ---------------
     files = [paramsB.select(b) for b in range(BF)]
     for itt in range(1, config.ep_itts):
-        resited = [ep_mod._ep_resite(model, files[b], config, yB[b], maskB[b], mu[b], var[b],
-                                     Sites(tt[b], tn[b]), config.damp(itt))
-                   for b in range(BF)]
-        tt = torch.stack([s.ttau for s, _ in resited])
-        tn = torch.stack([s.tnu for s, _ in resited])
-        nlZ.append(-torch.stack([lZ_b.sum() for _, lZ_b in resited]))
-        ms_f, Ps_f = fused_kalman.fused_fwd(
-            tt.permute(1, 0, 2).reshape(T, -1), tn.permute(1, 0, 2).reshape(T, -1),
-            flat.A, flat.Q, flat.Pinf, flat.H)
-        mu_new, var_new = smooth(ms_f, Ps_f)
-        maxdiff.append(torch.maximum((mu_new - mu).abs().amax(dim=(1, 2)),
-                                     (var_new - var).abs().amax(dim=(1, 2))))
-        mu, var = mu_new, var_new
+        resited = []
+        for b in range(BF):
+            with span("nsgp.resite"):
+                resited.append(ep_mod._ep_resite(model, files[b], config, yB[b], maskB[b], mu[b],
+                                                 var[b], Sites(tt[b], tn[b]), config.damp(itt)))
+        with span("nsgp.pass"):
+            tt = torch.stack([s.ttau for s, _ in resited])
+            tn = torch.stack([s.tnu for s, _ in resited])
+            nlZ.append(-torch.stack([lZ_b.sum() for _, lZ_b in resited]))
+            ms_f, Ps_f = fused_kalman.fused_fwd(
+                tt.permute(1, 0, 2).reshape(T, -1), tn.permute(1, 0, 2).reshape(T, -1),
+                flat.A, flat.Q, flat.Pinf, flat.H)
+            mu_new, var_new = smooth(ms_f, Ps_f)
+            maxdiff.append(torch.maximum((mu_new - mu).abs().amax(dim=(1, 2)),
+                                         (var_new - var).abs().amax(dim=(1, 2))))
+            mu, var = mu_new, var_new
 
     return BatchEPResult(Eft=mu, Varft=var, nlZ=torch.stack(nlZ, dim=1),
                          maxdiff=torch.stack(maxdiff, dim=1), sites=Sites(tt, tn))

@@ -68,6 +68,7 @@ from nsgp_tpu_torch.parallel.collectives import all_reduce, gather, mesh_axis, s
 from nsgp_tpu_torch.ops.moments import moments, moments_chunked
 from nsgp_tpu_torch.utils.device import place_inputs
 from nsgp_tpu_torch.utils.precision import full_fp32
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 BACKENDS = ("seq", "fused")
 
@@ -210,6 +211,7 @@ def _traj_channels(traj: PackedTrajectory, lo: int, hi: int, bs: int, axis) -> P
                             scatter(traj.Ps, axis, 1, lo * bs * bs, hi * bs * bs))
 
 
+@spanned("nsgp.ep_infer")
 def ep_infer(
     model: GTNMFModel,
     params: GTNMFParams,
@@ -230,100 +232,103 @@ def ep_infer(
     _check_config(config)
     chan, tax = mesh_axis(config.channel_axis), mesh_axis(config.time_axis)
     full_fp32()
-    dev, params, y, mask = place_inputs(params, y, mask, device)
-    ssm = model.build_ssm(params)
-    dtype = ssm.A.dtype
-    T = y.shape[0]
-    C, bs = ssm.num_channels, ssm.block_size
-    sites = kalman.init_sites(T, C, dtype, dev)
-    mom_fn = _mom_point(model, params)
-    fused = config.backend == "fused"
-    # The sequential backend follows the reference's exact last-site
-    # bookkeeping (forward re-match at k=T, backward re-site over k<T, nlZ
-    # mixing the forward lZ(T) with the backward lZ(1..T-1) —
-    # gf_ep_modulator_nmf.m:141, :207, :277).  Fused and parallel keep the
-    # all-T re-site.
-    all_T = fused or config.parallel
-    seq = not all_T
-    last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
-    last_only[-1] = True
+    with span("nsgp.assemble"):
+        dev, params, y, mask = place_inputs(params, y, mask, device)
+        ssm = model.build_ssm(params)
+        dtype = ssm.A.dtype
+        T = y.shape[0]
+        C, bs = ssm.num_channels, ssm.block_size
+        sites = kalman.init_sites(T, C, dtype, dev)
+        mom_fn = _mom_point(model, params)
+        fused = config.backend == "fused"
+        # The sequential backend follows the reference's exact last-site
+        # bookkeeping (forward re-match at k=T, backward re-site over k<T, nlZ
+        # mixing the forward lZ(T) with the backward lZ(1..T-1) —
+        # gf_ep_modulator_nmf.m:141, :207, :277).  Fused and parallel keep the
+        # all-T re-site.
+        all_T = fused or config.parallel
+        seq = not all_T
+        last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
+        last_only[-1] = True
 
-    # This rank's channels [c0, c1) and, from sweep 1's re-site on, its rows
-    # (all of them unsharded).
-    c0, c1 = chan.split(C) if chan else (0, C)
-    ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
-    own_channels = lambda s: Sites(s.ttau[:, c0:c1], s.tnu[:, c0:c1]) if chan else s
-    rows = slice(0, T)
-    if tax:
-        nc = -(-T // config.chunk)
-        if nc < tax.size:
-            raise ValueError(f"{nc} chunks of {config.chunk} steps cannot be split over "
-                             f"{tax.size} ranks of axis {tax.name!r}")
-        k0, k1 = tax.split(nc)
-        rows = slice(k0 * config.chunk, min(k1 * config.chunk, T))
-    split_rows = tax is not None and config.ep_itts > 1
-    y_r, mask_r = y[rows], mask[rows]
+        # This rank's channels [c0, c1) and, from sweep 1's re-site on, its rows
+        # (all of them unsharded).
+        c0, c1 = chan.split(C) if chan else (0, C)
+        ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
+        own_channels = lambda s: Sites(s.ttau[:, c0:c1], s.tnu[:, c0:c1]) if chan else s
+        rows = slice(0, T)
+        if tax:
+            nc = -(-T // config.chunk)
+            if nc < tax.size:
+                raise ValueError(f"{nc} chunks of {config.chunk} steps cannot be split over "
+                                 f"{tax.size} ranks of axis {tax.name!r}")
+            k0, k1 = tax.split(nc)
+            rows = slice(k0 * config.chunk, min(k1 * config.chunk, T))
+        split_rows = tax is not None and config.ep_itts > 1
+        y_r, mask_r = y[rows], mask[rows]
 
-    def marginals(ms, Ps):
-        mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
-        if chan:
-            mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
-        return mu, var
+        def marginals(ms, Ps):
+            mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
+            if chan:
+                mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
+            return mu, var
 
-    nlZ = torch.zeros((config.ep_itts,), dtype=dtype, device=dev)
-    maxdiff = torch.full((config.ep_itts,), float("inf"), dtype=dtype, device=dev)
-    lZ_final = torch.zeros((T,), dtype=dtype, device=dev)
-    lZ_last = torch.zeros((), dtype=dtype, device=dev)
+        nlZ = torch.zeros((config.ep_itts,), dtype=dtype, device=dev)
+        maxdiff = torch.full((config.ep_itts,), float("inf"), dtype=dtype, device=dev)
+        lZ_final = torch.zeros((T,), dtype=dtype, device=dev)
+        lZ_last = torch.zeros((), dtype=dtype, device=dev)
 
     mu = var = None
     for itt in range(config.ep_itts):
         damp = config.damp(itt)
-        if itt == 0:
-            # Replicated: the moment match couples every channel at each step.
-            if fused:
-                ms_f, Ps_f, lZ, sites = fused_kalman.adf_filter_fused(
-                    model.moment_params(), ssm, params.W, params.lik, y, mask, damp
-                )
-                ms, Ps = fused_kalman.smoother_fused(ssm_c, ms_f[:, c0:c1], Ps_f[:, c0:c1])
+        with span("nsgp.sweep1" if itt == 0 else "nsgp.pass"):
+            if itt == 0:
+                # Replicated: the moment match couples every channel at each step.
+                if fused:
+                    ms_f, Ps_f, lZ, sites = fused_kalman.adf_filter_fused(
+                        model.moment_params(), ssm, params.W, params.lik, y, mask, damp
+                    )
+                    ms, Ps = fused_kalman.smoother_fused(ssm_c, ms_f[:, c0:c1], Ps_f[:, c0:c1])
+                else:
+                    fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
+                                                      match_mask=None)
+                    ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
+                                                 if chan else fr)
+                nlZ[0] = -torch.sum(lZ)
+                lZ_final = lZ
+                lZ_last = lZ[-1]
+            elif all_T:
+                ms, Ps = _forward_backward(ssm_c, own_channels(sites), config, tax, T)
             else:
-                fr, lZ, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
-                                                  match_mask=None)
+                # Reference quirk: later forward passes still re-match the site
+                # at the very last step (itt == 1 || k == numel(yall) branch);
+                # that couples the channels, so this pass is replicated.
+                fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
+                                                      match_mask=last_only)
+                lZ_last = lZ_fwd[-1]
                 ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
                                              if chan else fr)
-            nlZ[0] = -torch.sum(lZ)
-            lZ_final = lZ
-            lZ_last = lZ[-1]
-        elif all_T:
-            ms, Ps = _forward_backward(ssm_c, own_channels(sites), config, tax, T)
-        else:
-            # Reference quirk: later forward passes still re-match the site
-            # at the very last step (itt == 1 || k == numel(yall) branch);
-            # that couples the channels, so this pass is replicated.
-            fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, damp,
-                                                  match_mask=last_only)
-            lZ_last = lZ_fwd[-1]
-            ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan)
-                                         if chan else fr)
 
-        mu_new, var_new = marginals(ms, Ps)
-        if itt == 0 and split_rows:
-            mu_new, var_new = mu_new[rows], var_new[rows]
-            sites = Sites(sites.ttau[rows], sites.tnu[rows])
-        if itt > 0:
-            # Convergence monitor (ref gf_ep_modulator.m:279-289).
-            md = torch.maximum((mu_new - mu).abs().max(), (var_new - var).abs().max())
-            maxdiff[itt] = all_reduce(md, tax, "max") if tax else md
-        mu, var = mu_new, var_new
+            mu_new, var_new = marginals(ms, Ps)
+            if itt == 0 and split_rows:
+                mu_new, var_new = mu_new[rows], var_new[rows]
+                sites = Sites(sites.ttau[rows], sites.tnu[rows])
+            if itt > 0:
+                # Convergence monitor (ref gf_ep_modulator.m:279-289).
+                md = torch.maximum((mu_new - mu).abs().max(), (var_new - var).abs().max())
+                maxdiff[itt] = all_reduce(md, tax, "max") if tax else md
+            mu, var = mu_new, var_new
 
         if itt < config.ep_itts - 1:
-            sites, lZ = _ep_resite(model, params, config, y_r, mask_r, mu, var, sites,
-                                   config.damp(itt + 1), exclude_last=seq)
-            if seq:
-                lZ = lZ.clone()
-                lZ[-1] = lZ_last
-            total = torch.sum(lZ)
-            nlZ[itt + 1] = -(all_reduce(total, tax) if tax else total)
-            lZ_final = lZ
+            with span("nsgp.resite"):
+                sites, lZ = _ep_resite(model, params, config, y_r, mask_r, mu, var, sites,
+                                       config.damp(itt + 1), exclude_last=seq)
+                if seq:
+                    lZ = lZ.clone()
+                    lZ[-1] = lZ_last
+                total = torch.sum(lZ)
+                nlZ[itt + 1] = -(all_reduce(total, tax) if tax else total)
+                lZ_final = lZ
 
     if seq and config.ep_itts > 1:
         # The final forward pass refreshed site T after the last re-site;

@@ -20,7 +20,8 @@ first for ``ihgp_energy``:
 ``ops/fused_kalman.py`` each wrapper does one of two things: on CPU tensors
 it runs its plain version (``*_plain``, a loop over T), on CUDA tensors it
 launches its kernel or raises; it counts its launches in
-``<wrapper>.launches``.  The grid lookup of the steady tables lives here,
+``<wrapper>.launches`` inside a profiler span ``nsgp.K<n>``
+(``utils.trace.launched``).  The grid lookup of the steady tables lives here,
 beside the sweep that needs it on both sides.
 """
 
@@ -33,6 +34,7 @@ import torch
 from nsgp_tpu_torch.ops.fused_kalman import (PlainMatch, _by_dtype, _check_adf, _check_shapes,
                                              _launch, _on_cpu, _opt_ptr, _ptr)
 from nsgp_tpu_torch.ops.moments import MomentParams, _log_floor, moments, sigma_points
+from nsgp_tpu_torch.utils.trace import launched
 
 
 class Lookup(NamedTuple):
@@ -303,38 +305,38 @@ def fused_ihgp_adf(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn
     if _on_cpu(y, ttau, tnu, A, H, first, tab, W, sn2):
         return fused_ihgp_adf_plain(y, obs, match, ttau, tnu, A, H, first, tab, lk, W, sn2,
                                     mp=mp, damp=damp)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_ihgp_adf, "nsgp.K5"):
+        from nsgp_tpu_torch.ops import _build
 
-    T = y.shape[0]
-    C, bs = H.shape
-    G = tab.shape[1]
-    D, N = mp.D, mp.N
-    dt_, dev = A.dtype, A.device
-    wn, xi = sigma_points(mp, dt_, dev)
-    S = wn.shape[0]
-    _check_shapes("fused_ihgp_adf", bs, T, y=(y, (T,)), ttau=(ttau, (T, C)), tnu=(tnu, (T, C)),
-                  A=(A, (C, bs, bs)), first=(first, (C, bs + 1)), tab=(tab, (C, G, bs + 1)),
-                  W=(W, (D, N)), sn2=(sn2.reshape(-1), (1,)))
-    _check_flags("fused_ihgp_adf", dev, T, obs=obs, match=match)
-    lib = _build.library()
-    _check_adf("fused_ihgp_adf", lib, C, D, N, S, mp.link, mp.variant)
-    lk4 = torch.stack([lk.lo, lk.hi, lk.span, lk.shift]).to(dev, dt_)
-    args = [x.contiguous() for x in (y, (obs & match).to(dt_), obs.to(dt_), ttau, tnu, A, H,
-                                     first, tab, lk4, W, xi, wn, sn2.reshape(1))]
-    ms = torch.empty((T, C * bs), dtype=dt_, device=dev)
-    idx = torch.empty((T, C), dtype=torch.int32, device=dev)
-    lZ = torch.empty((T,), dtype=dt_, device=dev)
-    tt = torch.empty((T, C), dtype=dt_, device=dev)
-    tn = torch.empty((T, C), dtype=dt_, device=dev)
-    damp = float(damp)
-    # 'sq': moments takes sqrt(a) unclamped; the kernel's floor is the
-    # smallest normal number (a == 0 gives 1e-19 in float32, not a NaN)
-    _launch("fused_ihgp_adf", _by_dtype(lib, "nsgp_fused_ihgp_adf", dt_), bs, *map(_ptr, args),
-            damp, 1.0 - damp, _log_floor(mp.z_floor, dt_), torch.finfo(dt_).tiny, T, D, N, S,
-            G, int(mp.link == "exp"), int(mp.variant == "sq"), _ptr(ms), _ptr(idx), _ptr(lZ),
-            _ptr(tt), _ptr(tn), device=dev)
-    fused_ihgp_adf.launches += 1
-    return ms, idx.long(), lZ, tt, tn
+        T = y.shape[0]
+        C, bs = H.shape
+        G = tab.shape[1]
+        D, N = mp.D, mp.N
+        dt_, dev = A.dtype, A.device
+        wn, xi = sigma_points(mp, dt_, dev)
+        S = wn.shape[0]
+        _check_shapes("fused_ihgp_adf", bs, T, y=(y, (T,)), ttau=(ttau, (T, C)), tnu=(tnu, (T, C)),
+                      A=(A, (C, bs, bs)), first=(first, (C, bs + 1)), tab=(tab, (C, G, bs + 1)),
+                      W=(W, (D, N)), sn2=(sn2.reshape(-1), (1,)))
+        _check_flags("fused_ihgp_adf", dev, T, obs=obs, match=match)
+        lib = _build.library()
+        _check_adf("fused_ihgp_adf", lib, C, D, N, S, mp.link, mp.variant)
+        lk4 = torch.stack([lk.lo, lk.hi, lk.span, lk.shift]).to(dev, dt_)
+        args = [x.contiguous() for x in (y, (obs & match).to(dt_), obs.to(dt_), ttau, tnu, A, H,
+                                         first, tab, lk4, W, xi, wn, sn2.reshape(1))]
+        ms = torch.empty((T, C * bs), dtype=dt_, device=dev)
+        idx = torch.empty((T, C), dtype=torch.int32, device=dev)
+        lZ = torch.empty((T,), dtype=dt_, device=dev)
+        tt = torch.empty((T, C), dtype=dt_, device=dev)
+        tn = torch.empty((T, C), dtype=dt_, device=dev)
+        damp = float(damp)
+        # 'sq': moments takes sqrt(a) unclamped; the kernel's floor is the
+        # smallest normal number (a == 0 gives 1e-19 in float32, not a NaN)
+        _launch("fused_ihgp_adf", _by_dtype(lib, "nsgp_fused_ihgp_adf", dt_), bs, *map(_ptr, args),
+                damp, 1.0 - damp, _log_floor(mp.z_floor, dt_), torch.finfo(dt_).tiny, T, D, N, S,
+                G, int(mp.link == "exp"), int(mp.variant == "sq"), _ptr(ms), _ptr(idx), _ptr(lZ),
+                _ptr(tt), _ptr(tn), device=dev)
+        return ms, idx.long(), lZ, tt, tn
 
 
 def fused_ihgp_adf_vjp(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W, sn2, ms, idx,
@@ -348,45 +350,45 @@ def fused_ihgp_adf_vjp(y, obs, match, ttau, tnu, A, H, first, tab, lk: Lookup, W
     if _on_cpu(y, ttau, tnu, A, H, first, tab, W, sn2, ms, tt, *given):
         return fused_ihgp_adf_vjp_plain(y, obs, match, ttau, tnu, A, H, first, tab, lk, W, sn2,
                                         ms, idx, tt, g_ms, g_lZ, g_tt, g_tn, mp=mp, damp=damp)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_ihgp_adf_vjp, "nsgp.K8"):
+        from nsgp_tpu_torch.ops import _build
 
-    T = y.shape[0]
-    C, bs = H.shape
-    G = tab.shape[1]
-    D, N = mp.D, mp.N
-    dt_, dev = A.dtype, A.device
-    wn, xi = sigma_points(mp, dt_, dev)
-    S = wn.shape[0]
-    _check_shapes("fused_ihgp_adf_vjp", bs, T, y=(y, (T,)), ttau=(ttau, (T, C)),
-                  tnu=(tnu, (T, C)), A=(A, (C, bs, bs)), first=(first, (C, bs + 1)),
-                  tab=(tab, (C, G, bs + 1)), W=(W, (D, N)), sn2=(sn2.reshape(-1), (1,)),
-                  ms=(ms, (T, C * bs)), idx=(idx, (T, C)), tt=(tt, (T, C)),
-                  **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C * bs)), ("g_lZ", g_lZ, (T,)),
-                                               ("g_tt", g_tt, (T, C)), ("g_tn", g_tn, (T, C)))
-                     if x is not None})
-    _check_flags("fused_ihgp_adf_vjp", dev, T, obs=obs, match=match)
-    if idx.device != dev or idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"fused_ihgp_adf_vjp: idx must be an integer tensor on {dev}")
-    lib = _build.library()
-    _check_adf("fused_ihgp_adf_vjp", lib, C, D, N, S, mp.link, mp.variant)
-    lk4 = torch.stack([lk.lo, lk.hi, lk.span, lk.shift]).to(dev, dt_)
-    args = [x.contiguous() for x in (y, (obs & match).to(dt_), obs.to(dt_), ttau, tnu, A, H,
-                                     first, tab, lk4, W, xi, wn, sn2.reshape(1), ms,
-                                     idx.to(torch.int32), tt)]
-    cots = [None if x is None else x.contiguous() for x in cots]
-    grads = [torch.empty(s, dtype=dt_, device=dev)
-             for s in ((C, bs, bs), (C, bs), (C, bs + 1), (C, G, bs + 1), (D, N), ())]
-    # the float64 sums of the cotangents, where shared memory cannot hold them
-    scratch = torch.empty((lib.nsgp_ihgp_adf_vjp_scratch(D, N, bs, G),), dtype=torch.float64,
-                          device=dev)
-    damp = float(damp)
-    _launch("fused_ihgp_adf_vjp", _by_dtype(lib, "nsgp_fused_ihgp_adf_vjp", dt_), bs,
-            *map(_ptr, args), *map(_opt_ptr, cots), damp, 1.0 - damp,
-            _log_floor(mp.z_floor, dt_), torch.finfo(dt_).tiny, T, D, N, S, G,
-            int(mp.link == "exp"), int(mp.variant == "sq"), *map(_ptr, grads), _ptr(scratch),
-            device=dev)
-    fused_ihgp_adf_vjp.launches += 1
-    return tuple(grads)
+        T = y.shape[0]
+        C, bs = H.shape
+        G = tab.shape[1]
+        D, N = mp.D, mp.N
+        dt_, dev = A.dtype, A.device
+        wn, xi = sigma_points(mp, dt_, dev)
+        S = wn.shape[0]
+        _check_shapes("fused_ihgp_adf_vjp", bs, T, y=(y, (T,)), ttau=(ttau, (T, C)),
+                      tnu=(tnu, (T, C)), A=(A, (C, bs, bs)), first=(first, (C, bs + 1)),
+                      tab=(tab, (C, G, bs + 1)), W=(W, (D, N)), sn2=(sn2.reshape(-1), (1,)),
+                      ms=(ms, (T, C * bs)), idx=(idx, (T, C)), tt=(tt, (T, C)),
+                      **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C * bs)),
+                                                   ("g_lZ", g_lZ, (T,)), ("g_tt", g_tt, (T, C)),
+                                                   ("g_tn", g_tn, (T, C))) if x is not None})
+        _check_flags("fused_ihgp_adf_vjp", dev, T, obs=obs, match=match)
+        if idx.device != dev or idx.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"fused_ihgp_adf_vjp: idx must be an integer tensor on {dev}")
+        lib = _build.library()
+        _check_adf("fused_ihgp_adf_vjp", lib, C, D, N, S, mp.link, mp.variant)
+        lk4 = torch.stack([lk.lo, lk.hi, lk.span, lk.shift]).to(dev, dt_)
+        args = [x.contiguous() for x in (y, (obs & match).to(dt_), obs.to(dt_), ttau, tnu, A, H,
+                                         first, tab, lk4, W, xi, wn, sn2.reshape(1), ms,
+                                         idx.to(torch.int32), tt)]
+        cots = [None if x is None else x.contiguous() for x in cots]
+        grads = [torch.empty(s, dtype=dt_, device=dev)
+                 for s in ((C, bs, bs), (C, bs), (C, bs + 1), (C, G, bs + 1), (D, N), ())]
+        # the float64 sums of the cotangents, where shared memory cannot hold them
+        scratch = torch.empty((lib.nsgp_ihgp_adf_vjp_scratch(D, N, bs, G),), dtype=torch.float64,
+                              device=dev)
+        damp = float(damp)
+        _launch("fused_ihgp_adf_vjp", _by_dtype(lib, "nsgp_fused_ihgp_adf_vjp", dt_), bs,
+                *map(_ptr, args), *map(_opt_ptr, cots), damp, 1.0 - damp,
+                _log_floor(mp.z_floor, dt_), torch.finfo(dt_).tiny, T, D, N, S, G,
+                int(mp.link == "exp"), int(mp.variant == "sq"), *map(_ptr, grads), _ptr(scratch),
+                device=dev)
+        return tuple(grads)
 
 
 class FusedIHGPADF(torch.autograd.Function):
@@ -431,22 +433,22 @@ def fused_ihgp_smooth(ms, idx, A, Gn):
     ``fused_ihgp_smooth_plain``)."""
     if _on_cpu(ms, A, Gn):
         return fused_ihgp_smooth_plain(ms, idx, A, Gn)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_ihgp_smooth, "nsgp.K6"):
+        from nsgp_tpu_torch.ops import _build
 
-    T = ms.shape[0]
-    C, bs = A.shape[0], A.shape[-1]
-    G = Gn.shape[1]
-    _check_shapes("fused_ihgp_smooth", bs, T, ms=(ms, (T, C * bs)), idx=(idx, (T, C)),
-                  A=(A, (C, bs, bs)), Gn=(Gn, (C, G, bs, bs)))
-    if idx.device != ms.device or idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"fused_ihgp_smooth: idx must be an integer tensor on {ms.device}")
-    args = [x.contiguous() for x in (ms, idx.to(torch.int32), A, Gn)]
-    sm = torch.empty_like(args[0])
-    lib = _build.library()
-    _launch("fused_ihgp_smooth", _by_dtype(lib, "nsgp_fused_ihgp_smooth", ms.dtype), bs,
-            *map(_ptr, args), _ptr(sm), T, C, G, device=ms.device)
-    fused_ihgp_smooth.launches += 1
-    return sm
+        T = ms.shape[0]
+        C, bs = A.shape[0], A.shape[-1]
+        G = Gn.shape[1]
+        _check_shapes("fused_ihgp_smooth", bs, T, ms=(ms, (T, C * bs)), idx=(idx, (T, C)),
+                      A=(A, (C, bs, bs)), Gn=(Gn, (C, G, bs, bs)))
+        if idx.device != ms.device or idx.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"fused_ihgp_smooth: idx must be an integer tensor on {ms.device}")
+        args = [x.contiguous() for x in (ms, idx.to(torch.int32), A, Gn)]
+        sm = torch.empty_like(args[0])
+        lib = _build.library()
+        _launch("fused_ihgp_smooth", _by_dtype(lib, "nsgp_fused_ihgp_smooth", ms.dtype), bs,
+                *map(_ptr, args), _ptr(sm), T, C, G, device=ms.device)
+        return sm
 
 
 WRAPPERS = (fused_ihgp_adf, fused_ihgp_smooth, fused_ihgp_adf_vjp)

@@ -24,7 +24,9 @@ plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
 at step 0 with no first-step skip, no symmetrisation, the Cholesky gain,
 sqrt(max(a, 1e-12)) for 'sq'); on CUDA tensors it launches the kernel or
 raises.  There is no fallback between the two.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches`` (one a call, whatever the passes).
+kernel launches in ``<wrapper>.launches`` (one a call, whatever the passes),
+through ``utils.trace.launched``: the host path and the launch run inside a
+profiler span ``nsgp.K<n>``.
 
 Trajectories are C-major, (T, C, bs) / (T, C, bs, bs), exactly T steps: the
 TPU kernels' b-major (Tp*bs, C) rows and the padding of T to a block exist
@@ -45,6 +47,7 @@ import torch
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import LINKS, MomentParams, sigma_points
 from nsgp_tpu_torch.ops.ssm import BlockSSM
+from nsgp_tpu_torch.utils.trace import launched, span
 
 MAX_BLOCK = 8  # block sizes instantiated in csrc/*.cu
 _LOG2PI = math.log(2.0 * math.pi)
@@ -840,25 +843,25 @@ def fused_fwd(ttau, tnu, A, Q, Pinf, H, *, _chunk=None):
     length."""
     if _on_cpu(ttau, tnu, A, Q, Pinf, H):
         return fused_fwd_plain(ttau, tnu, A, Q, Pinf, H)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_fwd, "nsgp.K1"):
+        from nsgp_tpu_torch.ops import _build
 
-    T, C = ttau.shape
-    bs = H.shape[1]
-    mat = (C, bs, bs)
-    _check_shapes("fused_fwd", bs, T, tnu=(tnu, (T, C)), A=(A, mat), Q=(Q, mat),
-                  Pinf=(Pinf, mat), H=(H, (C, bs)))
-    args = [_aligned(x) for x in (ttau, tnu, A, Q, Pinf, H)]
-    ms = torch.empty((T, C, bs), dtype=A.dtype, device=A.device)
-    Ps = torch.empty((T, C, bs, bs), dtype=A.dtype, device=A.device)
-    lib = _build.library()
-    shape = blocked_launch_shape(T, C, _chunk)
-    tot = _scratch(_FWD_TOTAL(bs), shape["chunks"] - 1, C, A)
-    carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
-    _launch("fused_fwd", _by_dtype(lib, "nsgp_fused_fwd", A.dtype), bs, *map(_ptr, args),
-            _ptr(ms), _ptr(Ps), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
-            device=A.device)
-    fused_fwd.launches += 1
-    return ms, Ps
+        T, C = ttau.shape
+        bs = H.shape[1]
+        mat = (C, bs, bs)
+        _check_shapes("fused_fwd", bs, T, tnu=(tnu, (T, C)), A=(A, mat), Q=(Q, mat),
+                      Pinf=(Pinf, mat), H=(H, (C, bs)))
+        args = [_aligned(x) for x in (ttau, tnu, A, Q, Pinf, H)]
+        ms = torch.empty((T, C, bs), dtype=A.dtype, device=A.device)
+        Ps = torch.empty((T, C, bs, bs), dtype=A.dtype, device=A.device)
+        lib = _build.library()
+        shape = blocked_launch_shape(T, C, _chunk)
+        tot = _scratch(_FWD_TOTAL(bs), shape["chunks"] - 1, C, A)
+        carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
+        _launch("fused_fwd", _by_dtype(lib, "nsgp_fused_fwd", A.dtype), bs, *map(_ptr, args),
+                _ptr(ms), _ptr(Ps), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
+                device=A.device)
+        return ms, Ps
 
 
 def fused_bwd(ms, Ps, A, Q, pad, *, _chunk=None):
@@ -867,24 +870,24 @@ def fused_bwd(ms, Ps, A, Q, pad, *, _chunk=None):
     count a call; ``_chunk`` as in ``fused_fwd``."""
     if _on_cpu(ms, Ps, A, Q, pad):
         return fused_bwd_plain(ms, Ps, A, Q, pad)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_bwd, "nsgp.K2"):
+        from nsgp_tpu_torch.ops import _build
 
-    T, C, bs = ms.shape
-    mat = (C, bs, bs)
-    _check_shapes("fused_bwd", bs, T, Ps=(Ps, (T, C, bs, bs)), A=(A, mat), Q=(Q, mat),
-                  pad=(pad, (C, bs)))
-    args = [_aligned(x) for x in (ms, Ps, A, Q, pad)]
-    sm = torch.empty_like(args[0])
-    sP = torch.empty_like(args[1])
-    lib = _build.library()
-    shape = blocked_launch_shape(T, C, _chunk)
-    tot = _scratch(_BWD_TOTAL(bs), shape["chunks"] - 1, C, A)
-    carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
-    _launch("fused_bwd", _by_dtype(lib, "nsgp_fused_bwd", A.dtype), bs, *map(_ptr, args),
-            _ptr(sm), _ptr(sP), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
-            device=A.device)
-    fused_bwd.launches += 1
-    return sm, sP
+        T, C, bs = ms.shape
+        mat = (C, bs, bs)
+        _check_shapes("fused_bwd", bs, T, Ps=(Ps, (T, C, bs, bs)), A=(A, mat), Q=(Q, mat),
+                      pad=(pad, (C, bs)))
+        args = [_aligned(x) for x in (ms, Ps, A, Q, pad)]
+        sm = torch.empty_like(args[0])
+        sP = torch.empty_like(args[1])
+        lib = _build.library()
+        shape = blocked_launch_shape(T, C, _chunk)
+        tot = _scratch(_BWD_TOTAL(bs), shape["chunks"] - 1, C, A)
+        carry = _scratch(_CARRY(bs), shape["chunks"] - 1, C, A)
+        _launch("fused_bwd", _by_dtype(lib, "nsgp_fused_bwd", A.dtype), bs, *map(_ptr, args),
+                _ptr(sm), _ptr(sP), _opt_ptr(tot), _opt_ptr(carry), T, C, shape["chunk"],
+                device=A.device)
+        return sm, sP
 
 
 def _check_adf(name: str, lib, C: int, D: int, N: int, S: int, link, variant):
@@ -916,31 +919,31 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
     if _on_cpu(y, obs, A, Q, Pinf, H, W, xi, wn, sn2):
         return fused_adf_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp=damp,
                                link=link, variant=variant, z_floor=z_floor)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_adf, "nsgp.K3"):
+        from nsgp_tpu_torch.ops import _build
 
-    T = y.shape[0]
-    C, bs = H.shape
-    D, N = W.shape
-    S = wn.shape[0]
-    mat = (C, bs, bs)
-    _check_shapes("fused_adf", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
-                  Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
-                  wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)))
-    lib = _build.library()
-    _check_adf("fused_adf", lib, C, D, N, S, link, variant)
-    args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1))]
-    dt_, dev = A.dtype, A.device
-    ms = torch.empty((T, C, bs), dtype=dt_, device=dev)
-    Ps = torch.empty((T, C, bs, bs), dtype=dt_, device=dev)
-    lZ = torch.empty((T,), dtype=dt_, device=dev)
-    tt = torch.empty((T, C), dtype=dt_, device=dev)
-    tn = torch.empty((T, C), dtype=dt_, device=dev)
-    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    _launch("fused_adf", _by_dtype(lib, "nsgp_fused_adf", dt_), bs, *map(_ptr, args),
-            float(damp), log_floor, T, D, N, S, int(link == "exp"), int(variant == "sq"),
-            _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), device=dev)
-    fused_adf.launches += 1
-    return ms, Ps, lZ, tt, tn
+        T = y.shape[0]
+        C, bs = H.shape
+        D, N = W.shape
+        S = wn.shape[0]
+        mat = (C, bs, bs)
+        _check_shapes("fused_adf", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
+                      Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
+                      wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)))
+        lib = _build.library()
+        _check_adf("fused_adf", lib, C, D, N, S, link, variant)
+        args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1))]
+        dt_, dev = A.dtype, A.device
+        ms = torch.empty((T, C, bs), dtype=dt_, device=dev)
+        Ps = torch.empty((T, C, bs, bs), dtype=dt_, device=dev)
+        lZ = torch.empty((T,), dtype=dt_, device=dev)
+        tt = torch.empty((T, C), dtype=dt_, device=dev)
+        tn = torch.empty((T, C), dtype=dt_, device=dev)
+        log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+        _launch("fused_adf", _by_dtype(lib, "nsgp_fused_adf", dt_), bs, *map(_ptr, args),
+                float(damp), log_floor, T, D, N, S, int(link == "exp"), int(variant == "sq"),
+                _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), device=dev)
+        return ms, Ps, lZ, tt, tn
 
 
 def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_lZ, g_tt, g_tn,
@@ -953,35 +956,37 @@ def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_l
         return fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps,
                                    g_lZ, g_tt, g_tn, damp=damp, link=link, variant=variant,
                                    z_floor=z_floor)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_adf_vjp, "nsgp.K7"):
+        from nsgp_tpu_torch.ops import _build
 
-    T = y.shape[0]
-    C, bs = H.shape
-    D, N = W.shape
-    S = wn.shape[0]
-    mat = (C, bs, bs)
-    _check_shapes("fused_adf_vjp", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
-                  Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
-                  wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)), ms=(ms, (T, C, bs)),
-                  Ps=(Ps, (T, C, bs, bs)),
-                  **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C, bs)),
-                                               ("g_Ps", g_Ps, (T, C, bs, bs)),
-                                               ("g_lZ", g_lZ, (T,)), ("g_tt", g_tt, (T, C)),
-                                               ("g_tn", g_tn, (T, C))) if x is not None})
-    lib = _build.library()
-    _check_adf("fused_adf_vjp", lib, C, D, N, S, link, variant)
-    args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1), ms, Ps)]
-    cots = [None if x is None else x.contiguous() for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn)]
-    dt_, dev = A.dtype, A.device
-    grads = [torch.empty(s, dtype=dt_, device=dev) for s in (mat, mat, mat, (C, bs), (D, N), ())]
-    # the float64 sums of the parameters' cotangents, where shared memory cannot hold them
-    scratch = torch.empty((lib.nsgp_adf_vjp_scratch(D, N, bs),), dtype=torch.float64, device=dev)
-    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    _launch("fused_adf_vjp", _by_dtype(lib, "nsgp_fused_adf_vjp", dt_), bs, *map(_ptr, args),
-            *map(_opt_ptr, cots), float(damp), log_floor, T, D, N, S, int(link == "exp"),
-            int(variant == "sq"), *map(_ptr, grads), _ptr(scratch), device=dev)
-    fused_adf_vjp.launches += 1
-    return tuple(grads)
+        T = y.shape[0]
+        C, bs = H.shape
+        D, N = W.shape
+        S = wn.shape[0]
+        mat = (C, bs, bs)
+        _check_shapes("fused_adf_vjp", bs, T, y=(y, (T,)), obs=(obs, (T,)), A=(A, mat), Q=(Q, mat),
+                      Pinf=(Pinf, mat), H=(H, (C, bs)), W=(W, (D, N)), xi=(xi, (S, N)),
+                      wn=(wn, (S,)), sn2=(sn2.reshape(-1), (1,)), ms=(ms, (T, C, bs)),
+                      Ps=(Ps, (T, C, bs, bs)),
+                      **{k: (x, s) for k, x, s in (("g_ms", g_ms, (T, C, bs)),
+                                                   ("g_Ps", g_Ps, (T, C, bs, bs)),
+                                                   ("g_lZ", g_lZ, (T,)), ("g_tt", g_tt, (T, C)),
+                                                   ("g_tn", g_tn, (T, C))) if x is not None})
+        lib = _build.library()
+        _check_adf("fused_adf_vjp", lib, C, D, N, S, link, variant)
+        args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1), ms, Ps)]
+        cots = [None if x is None else x.contiguous() for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn)]
+        dt_, dev = A.dtype, A.device
+        grads = [torch.empty(s, dtype=dt_, device=dev)
+                 for s in (mat, mat, mat, (C, bs), (D, N), ())]
+        # the float64 sums of the parameters' cotangents, where shared memory cannot hold them
+        scratch = torch.empty((lib.nsgp_adf_vjp_scratch(D, N, bs),), dtype=torch.float64,
+                              device=dev)
+        log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+        _launch("fused_adf_vjp", _by_dtype(lib, "nsgp_fused_adf_vjp", dt_), bs, *map(_ptr, args),
+                *map(_opt_ptr, cots), float(damp), log_floor, T, D, N, S, int(link == "exp"),
+                int(variant == "sq"), *map(_ptr, grads), _ptr(scratch), device=dev)
+        return tuple(grads)
 
 
 class FusedADF(torch.autograd.Function):
@@ -1021,35 +1026,35 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
         return fused_adf_mb_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, damp=damp,
                                   link=link, variant=variant, z_floor=z_floor,
                                   s_chunk=s_chunk)
-    from nsgp_tpu_torch.ops import _build
+    with launched(fused_adf_mb, "nsgp.K4"):
+        from nsgp_tpu_torch.ops import _build
 
-    T, BF = y.shape
-    _, C, bs = H.shape
-    _, D, N = W.shape
-    S = wn.shape[0]
-    mat = (BF, C, bs, bs)
-    _check_shapes("fused_adf_mb", bs, T, obs=(obs, (T, BF)), A=(A, mat), Q=(Q, mat),
-                  Pinf=(Pinf, mat), H=(H, (BF, C, bs)), W=(W, (BF, D, N)), xi=(xi, (S, N)),
-                  wn=(wn, (S,)), sn2=(sn2, (BF,)))
-    if BF < 1 or s_chunk < 0:
-        raise ValueError(f"fused_adf_mb needs BF >= 1 and s_chunk >= 0, got {BF}, {s_chunk}")
-    lib = _lib or _build.library()
-    _check_adf("fused_adf_mb", lib, C, D, N, S, link, variant)
-    args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2)]
-    dt_, dev = A.dtype, A.device
-    ms = torch.empty((T, BF, C, bs), dtype=dt_, device=dev)
-    Ps = torch.empty((T, BF, C, bs, bs), dtype=dt_, device=dev)
-    lZ = torch.empty((T, BF), dtype=dt_, device=dev)
-    tt = torch.empty((T, BF, C), dtype=dt_, device=dev)
-    tn = torch.empty((T, BF, C), dtype=dt_, device=dev)
-    log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
-    cycles = ctypes.c_void_p(None) if _cycles is None else _ptr(_cycles)
-    _launch("fused_adf_mb", _by_dtype(lib, "nsgp_fused_adf_mb", dt_), bs, *map(_ptr, args),
-            float(damp), log_floor, T, BF, D, N, S, int(link == "exp"),
-            int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), cycles,
-            device=dev)
-    fused_adf_mb.launches += 1
-    return ms, Ps, lZ, tt, tn
+        T, BF = y.shape
+        _, C, bs = H.shape
+        _, D, N = W.shape
+        S = wn.shape[0]
+        mat = (BF, C, bs, bs)
+        _check_shapes("fused_adf_mb", bs, T, obs=(obs, (T, BF)), A=(A, mat), Q=(Q, mat),
+                      Pinf=(Pinf, mat), H=(H, (BF, C, bs)), W=(W, (BF, D, N)), xi=(xi, (S, N)),
+                      wn=(wn, (S,)), sn2=(sn2, (BF,)))
+        if BF < 1 or s_chunk < 0:
+            raise ValueError(f"fused_adf_mb needs BF >= 1 and s_chunk >= 0, got {BF}, {s_chunk}")
+        lib = _lib or _build.library()
+        _check_adf("fused_adf_mb", lib, C, D, N, S, link, variant)
+        args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2)]
+        dt_, dev = A.dtype, A.device
+        ms = torch.empty((T, BF, C, bs), dtype=dt_, device=dev)
+        Ps = torch.empty((T, BF, C, bs, bs), dtype=dt_, device=dev)
+        lZ = torch.empty((T, BF), dtype=dt_, device=dev)
+        tt = torch.empty((T, BF, C), dtype=dt_, device=dev)
+        tn = torch.empty((T, BF, C), dtype=dt_, device=dev)
+        log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
+        cycles = ctypes.c_void_p(None) if _cycles is None else _ptr(_cycles)
+        _launch("fused_adf_mb", _by_dtype(lib, "nsgp_fused_adf_mb", dt_), bs, *map(_ptr, args),
+                float(damp), log_floor, T, BF, D, N, S, int(link == "exp"),
+                int(variant == "sq"), _ptr(ms), _ptr(Ps), _ptr(lZ), _ptr(tt), _ptr(tn), cycles,
+                device=dev)
+        return ms, Ps, lZ, tt, tn
 
 
 WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb, fused_adf_vjp)
@@ -1077,7 +1082,7 @@ def check_stationary(ssm: BlockSSM) -> None:
     """Raise unless Q = Pinf - A Pinf A' (any leading axes): the kernels
     start from (0, Pinf) and rely on one prediction leaving it unchanged.
     Tolerance relative to max |Pinf|: 1e-5 in float32, 1e-10 in float64."""
-    with torch.no_grad():
+    with torch.no_grad(), span("nsgp.check_stationary"):
         gap = ssm.Q - (ssm.Pinf - ssm.A @ ssm.Pinf @ ssm.A.transpose(-1, -2))
         rel = float(gap.abs().max() / ssm.Pinf.abs().max())
     tol = 1e-10 if ssm.A.dtype == torch.float64 else 1e-5
