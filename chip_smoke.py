@@ -23,8 +23,9 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    run as one chunk, which is the sequential pass; all timed over all T.
 2. the single-signal path: ``ep_infer(backend="fused")`` at the headline
    benchmark shape (T=100 000, 3 EP sweeps, float32), launch counters reset
-   just before one run and read just after; s/sweep over 3 timed runs, and
-   one float64 run as the float32 health check.
+   just before one run and read just after; K9 ``fused_resite`` against its
+   plain twin on that run's marginals and sites (77 sigma points, all T);
+   s/sweep over 3 timed runs, and one float64 run as the float32 health check.
 3. real weights: ``results/trained/music/trained_piano_matern32.npz``,
    T=2048 from its prior, 3 sweeps on the card vs the CPU (plain versions).
 4. K4 fused_adf_mb against its plain version: (a) batch width (BF=10, D=16,
@@ -47,7 +48,8 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
 6. the mixture path: ``separate(engine="ep", backend="fused", s_chunk=256)``
    over three trained source models (joint D=48, N=9, 3973 sigma points),
    T=16 000, float32, a seeded synthetic mixture with known parts; launch
-   counters; K4 ms per step and the re-site's time at this width; K1 and K2
+   counters; K4 ms per step; K9 against its plain twin on that run's
+   marginals and sites (3973 sigma points, all T); K1 and K2
    at the path's own shape (T=16 000, C=57) and chunk length as in phase 5;
    the same call at T=2048 in float64 on the card against the CPU.
 
@@ -336,6 +338,8 @@ KERNELS = {
     # the transposed scan that jax.grad(ihgp_energy) derives from the lax.scan of
     # _steady_filter_seq
     "fused_ihgp_adf_vjp": ("nsgp_tpu/inference/ihgp.py:402", "fused_ihgp_adf_vjp.cuh"),
+    # no Pallas kernel: the re-site's XLA ops around moments_chunked
+    "fused_resite": ("nsgp_tpu/inference/ep.py:102", "fused_resite.cuh"),
 }
 
 
@@ -406,6 +410,14 @@ def bound_adf_vjp(T, D_, N_, S, bs, observed_steps, cotangent_values, itemsize=4
     n = T * (2 + C * (bs + bs * bs)) + cotangent_values + 2 * params + S * (N_ + 1)
     flops = 3 * (T * C * filter_flops(bs) + observed_steps * (S * sigma_flops(D_, N_) + 12 * C))
     return bound(n * itemsize, flops)
+
+
+def bound_resite(T, D_, N_, S, itemsize=4):
+    """K9: reads y, the mask and four (T, C) inputs, writes two (T, C) sites
+    and lZ; every site matches all S points."""
+    C = D_ + N_
+    n = T * (2 + 4 * C + 2 * C + 1) + D_ * N_ + 1 + S * (N_ + 1)
+    return bound(n * itemsize, T * S * sigma_flops(D_, N_))
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +633,18 @@ def compare(label, name, kern, plain, tol, time_reps, timed=None, rows=slice(Non
         raise AssertionError(f"{name} ({label}) disagrees with its plain version: "
                              f"rel err {err_rel:.3e} > {tol:g}")
     return dict(max_abs_err=err_abs, max_rel_err=err_rel, ms=ms, plain_ms=plain_ms)
+
+
+def resite_case(model, params, y, mask, mu, var, sites, cfg):
+    """(kernel call, plain call) for K9 on the same card tensors: the
+    all-T re-site of sweep 2 at ``cfg``'s fraction and damping, the plain
+    twin in chunks of ``cfg.moment_chunk`` sites."""
+    from nsgp_tpu_torch.ops import fused_kalman as fk
+
+    args = (model.moment_params(), y, mask, mu, var, sites.ttau, sites.tnu, params.W, params.lik)
+    kw = dict(frac=cfg.ep_fraction, damp=cfg.damp(1))
+    return (lambda: fk.fused_resite(*args, **kw),
+            lambda: fk.fused_resite_plain(*args, chunk=cfg.moment_chunk, **kw))
 
 
 def adf_case(model, params, y, mask, steps=None):
@@ -938,7 +962,8 @@ def training_phase(smi, dev):
     (e32, g32), vg_s = host_s(lambda: energy_and_grad(model, init32, y32[:T_TRAIN], 1, dev))
     vg_launches = counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    want = {"fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1}
+    want = {"fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1,
+            "fused_resite": 0}
     require(vg_launches == want, f"phase7b: a value and gradient launched {vg_launches}, not {want}")
     (e64, g64), vg64_s = host_s(lambda: energy_and_grad(model, init64, y64[:T_TRAIN].to(dev), 1,
                                                         dev))
@@ -1007,7 +1032,7 @@ def training_phase(smi, dev):
         gaps[c - 1 - GAP_HALF: c + GAP_HALF] = True
     snr = {}
     want = {"fused_fwd": EVAL_ITTS - 1, "fused_bwd": EVAL_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
-            "fused_adf_vjp": 0}
+            "fused_adf_vjp": 0, "fused_resite": EVAL_ITTS - 1}
     for name, p in (("init", init32), ("learned", fit32.params)):
         leaves = {k: v for k, v in p.named_buffers()}
         leaves["lik"] = torch.tensor(LIK_MISSING, dtype=torch.float32, device=dev)
@@ -1914,7 +1939,7 @@ def denoise_phase(smi, dev):
                                                row["log_spec_snr_out_db"])),
                 f"non-finite denoising metrics at v={v}")
     want = {"fused_adf": 1, "fused_bwd": DN_KW["ep_itts"], "fused_fwd": DN_KW["ep_itts"] - 1,
-            "fused_adf_mb": 0, "fused_adf_vjp": 0}
+            "fused_adf_mb": 0, "fused_adf_vjp": 0, "fused_resite": DN_KW["ep_itts"] - 1}
     log(f"phase9c launches in one denoise call: {launches} (want {want})")
     require(launches == want, f"launch counts {launches} != {want}: the denoising path missed "
             f"a kernel")
@@ -2017,7 +2042,8 @@ def experiments_phase(smi, dev, batch_s_3sweeps):
         launches = counts()
         out["s"]["a"] = time.perf_counter() - t0
         want = {"fused_fwd": 2 * sum(i - 1 for i in GRID_ITTS), "fused_bwd": 2 * sum(GRID_ITTS),
-                "fused_adf": 0, "fused_adf_mb": 2 * len(GRID_ITTS), "fused_adf_vjp": 0}
+                "fused_adf": 0, "fused_adf_mb": 2 * len(GRID_ITTS), "fused_adf_vjp": 0,
+                "fused_resite": 2 * len(lengths) * sum(i - 1 for i in GRID_ITTS)}
         files = grid["files"]
         pad_T = files[0]["pad_T"]
         rows = [(f["file"], r) for f in files for r in f["rows"]]
@@ -2346,7 +2372,7 @@ def mesh_phase(smi):
         require(a["rel"] <= tol, f"phase11 {label}: sharded EP disagrees with unsharded")
         require(ranks[1][label]["checksum"] == a["checksum"], f"phase11 {label}: ranks differ")
         want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
-                "fused_adf_vjp": 0}
+                "fused_adf_vjp": 0, "fused_resite": EP_ITTS - 1}
         for r in ranks[:2]:
             require(r[label]["launches"] == want, f"phase11 {label}: rank {r['rank']} launched "
                                                   f"{r[label]['launches']}, not {want}")
@@ -2356,8 +2382,12 @@ def mesh_phase(smi):
             f"{r0[label]['rel']:.3e} (tol {TOL_MESH64:g}); {r0[label]['s']:.2f} s against "
             f"{r0['bc_1rank_s']:.2f} s on 1 rank; collectives {r0[label]['collectives']}")
         require(r0[label]["rel"] <= TOL_MESH64, f"phase11 {label}: sharded EP disagrees")
-    require(all(v == 0 for r in ranks for v in r["bc_launches"].values()),
-            "phase11 b/c: the seq engine launched a fused kernel")
+    # the seq engine launches no pass kernel; each rank's re-sites of its rows
+    # are K9, EP_ITTS - 1 in (b) and as many in (c)
+    want_bc = dict.fromkeys(ranks[0]["bc_launches"], 0)
+    want_bc["fused_resite"] = 2 * (EP_ITTS - 1)
+    require(all(r["bc_launches"] == want_bc for r in ranks),
+            f"phase11 b/c: launches {[r['bc_launches'] for r in ranks]}, not {want_bc} a rank")
     d = r0["d"]
     log(f"phase11 d data-parallel step B={d['B']} T={d['T']} f64: 2 ranks vs 1 rel err "
         f"{d['rel']:.3e} (tol {TOL_MESH64:g}); {d['s_2ranks']:.2f} s against {d['s_1rank']:.2f} s; "
@@ -2481,7 +2511,6 @@ def main() -> int:
     from nsgp_tpu_torch.apps.missing_data import fill_gaps_batch
     from nsgp_tpu_torch.apps.source_sep import separate
     from nsgp_tpu_torch.convert import load_trained
-    from nsgp_tpu_torch.inference import ep as ep_mod
     from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
     from nsgp_tpu_torch.models import mixture
     from nsgp_tpu_torch.models.gtnmf import sample_prior, stack_params
@@ -2541,7 +2570,7 @@ def main() -> int:
     res, first_s = host_s(lambda: ep_infer(model, params, y, None, cfg))
     launches_single = counts()
     want = {"fused_fwd": EP_ITTS - 1, "fused_bwd": EP_ITTS, "fused_adf": 1, "fused_adf_mb": 0,
-            "fused_adf_vjp": 0}
+            "fused_adf_vjp": 0, "fused_resite": EP_ITTS - 1}
     nlZ = res.nlZ.cpu().numpy()
     log(f"phase2 first run {first_s:.3f} s launches={launches_single} nlZ={nlZ.tolist()} "
         f"maxdiff={res.maxdiff.cpu().numpy().tolist()}")
@@ -2551,6 +2580,10 @@ def main() -> int:
     check_posterior("phase2", res.nlZ, res.Eft, res.Varft, (T_MAIN, D + N))
     if res.ms.shape != (T_MAIN, (D + N) * 4):
         raise AssertionError(f"unexpected state shape {tuple(res.ms.shape)}")
+    resite = compare(f"phase2 f32 T={T_MAIN} S=77 (this run's marginals and sites)",
+                     "fused_resite", *resite_case(model, params, y, mask, res.Eft, res.Varft,
+                                                  res.sites, cfg), TOL_F32, time_reps=5)
+    resite["bound"] = bound_resite(T_MAIN, D, N, 77)
     runs = [host_s(lambda: ep_infer(model, params, y, None, cfg))[1] for _ in range(3)]
     s_sweep = float(np.mean(runs)) / EP_ITTS
     log(f"phase2 ep_infer fused f32 T={T_MAIN} {EP_ITTS} sweeps: runs_s={[round(r, 4) for r in runs]} "
@@ -2651,7 +2684,7 @@ def main() -> int:
     gres, first_s = host_s(run_batch)
     launches_batch = counts()
     want = {"fused_adf_mb": 1, "fused_bwd": EP_ITTS, "fused_fwd": EP_ITTS - 1, "fused_adf": 0,
-            "fused_adf_vjp": 0}
+            "fused_adf_vjp": 0, "fused_resite": BF_c * (EP_ITTS - 1)}
     rb = gres.result
     log(f"phase5 fill_gaps_batch BF={BF_c} T={T_c} lengths={lengths} f32 first call "
         f"{first_s:.3f} s launches={launches_batch}")
@@ -2707,6 +2740,7 @@ def main() -> int:
     fk.reset_launches()
     sres, mix_s = host_s(run_mix)
     launches_mix = counts()
+    want = dict(want, fused_resite=MIX_KW["ep_itts"] - 1)  # one file: a re-site a later sweep
     rm = sres.result
     log(f"phase6 separate J=3 D={jm.D} N={jm.N} S={S_mix} T={T_MIX} f32: {mix_s:.3f} s "
         f"launches={launches_mix} nlZ={rm.nlZ.tolist()} "
@@ -2726,12 +2760,16 @@ def main() -> int:
     mix["bound"] = bound_adf(T_MIX, 1, jm.D, jm.N, S_mix, bs_m, T_MIX)
     cfg_m = EPConfig(**MIX_KW)
     all_seen = torch.ones(T_MIX, dtype=torch.bool, device=dev)
-    _, resite_s = host_s(lambda: ep_mod._ep_resite(
-        jm, jp, cfg_m, y_mix, all_seen, rm.Eft, rm.Varft,
-        Sites(rm.sites.ttau[0], rm.sites.tnu[0]), cfg_m.damp(1)))
+    resite_m = compare(
+        f"phase6 f32 T={T_MIX} D={jm.D} N={jm.N} S={S_mix} (this run's marginals and sites; "
+        f"plain in chunks of {cfg_m.moment_chunk})", "fused_resite",
+        *resite_case(jm, jp, y_mix, all_seen, rm.Eft, rm.Varft,
+                     Sites(rm.sites.ttau[0], rm.sites.tnu[0]), cfg_m), TOL_F32, time_reps=3)
+    resite_m["bound"] = bound_resite(T_MIX, jm.D, jm.N, S_mix)
     log(f"phase6 K4 alone at mixture width: {mix['ms']:.1f} ms for T={T_MIX} = "
         f"{mix['ms'] / T_MIX:.4f} ms/step (T=96 000 would take {96.0 * mix['ms'] / T_MIX:.1f} s); "
-        f"one re-site of all T (moment_chunk=64): {resite_s:.3f} s")
+        f"one re-site of all T, K9: {resite_m['ms']:.3f} ms (bound "
+        f"{resite_m['bound'][0]:.3f} ms)")
     C_m = jm.D + jm.N
     wide_m = kalman_path_checks("phase6 f32", flatten_files(jm.build_ssm_batch(jpB)),
                                 random_sites(T_MIX, C_m, seed=6), T_KERNEL, TOL_F32)
@@ -2790,8 +2828,12 @@ def main() -> int:
     # the IHGP path's (phase 8f: one value and gradient of ihgp_energy at T=16 000,
     # its `ms` K8 alone on that run's inputs, `max_abs_err` and `plain_ms` the
     # float32 check over `plain_steps`, its registers and spills from the build's
-    # ptxas log in `ptxas`).  No single PyTorch call computes a T-long
-    # data-dependent recursion, so `library_ms` is null throughout.
+    # ptxas log in `ptxas`).  K9 is the single-signal path's (phase 2: its two
+    # re-sites; `ms`, `max_abs_err` and `plain_ms` of one re-site on that run's
+    # marginals and sites, the plain twin in chunks of `plain_chunk` sites;
+    # the mixture path's, phase 6, in `other_shapes`).  No single PyTorch call
+    # computes a T-long data-dependent recursion or a whole re-site, so
+    # `library_ms` is null throughout.
     def numbers(nums, shape, **more):
         nums = dict(nums)
         bound_ms, bound_by = nums.pop("bound")
@@ -2826,6 +2868,10 @@ def main() -> int:
               [numbers(mix, f"T={T_MIX} BF=1 D={jm.D} N={jm.N} S={S_mix} s_chunk=256 bs={bs_m} "
                             f"f32", plain_steps=T_MIX_KERNEL, **fk.adf_launch_shape(S_mix))],
               plain_steps=T_KERNEL, **fk.adf_launch_shape(77)),
+        entry("fused_resite", resite, f"T={T_MAIN} D={D} N={N} S=77 f32", launches_single,
+              [numbers(resite_m, f"T={T_MIX} D={jm.D} N={jm.N} S={S_mix} f32",
+                       plain_chunk=MIX_KW["moment_chunk"])],
+              plain_chunk=cfg.moment_chunk),
     ]
     ih_kern, ih_launches = ihgp_numbers["kernels"], ihgp_numbers["ihgp_launches"]
     pick = ("ms", "plain_ms", "plain_steps", "max_abs_err", "bound", "threads", "cluster")

@@ -133,9 +133,10 @@ struct AdfLayout {
 
 __host__ __device__ inline int adf_r4(int x) { return (x + 3) & ~3; }
 
-__host__ __device__ inline AdfLayout adf_layout(int D, int N, int S, int R, size_t elem) {
-  AdfLayout L;
-  const int PB = adf_points_per_lane(R);
+// The lane map of a warp (the layout's first fields): G lanes a point, GW
+// groups a warp, PT points a warp per round at PB points a lane, the padded
+// width Dp and a record's length.  K9 (fused_resite.cuh) takes it alone.
+__host__ __device__ inline void adf_lane_map(AdfLayout& L, int D, int N, int PB) {
   const int width = D > N ? D : N;
   L.lg = 0;
   while ((ADF_DB << L.lg) < width && L.lg < 5) ++L.lg;
@@ -147,6 +148,12 @@ __host__ __device__ inline AdfLayout adf_layout(int D, int N, int S, int R, size
   while ((1 << L.lgPT) < L.PT) ++L.lgPT;
   L.Dp = L.G * ADF_DB;
   L.rec = adf_r4(L.G * ADF_NACC + 1);
+}
+
+__host__ __device__ inline AdfLayout adf_layout(int D, int N, int S, int R, size_t elem) {
+  AdfLayout L;
+  const int PB = adf_points_per_lane(R);
+  adf_lane_map(L, D, N, PB);
   const int per_round = R * L.GC * PB;
   L.nloc = ((S + per_round - 1) / per_round) * L.GC * PB;
   int o = 0;
@@ -376,111 +383,25 @@ struct CovRecursion {
   }
 };
 
-// One CTA's share of the moment match of a sweep over file b by its cluster
-// of R CTAs: the thread map, the shared layout, and what is staged once per
-// launch (the padding, W transposed, the CTA's own sigma points).  Built by
-// every thread; a __syncthreads() must follow before the first step.  Its
-// members are the phases of a step that every thread runs: publish (the
-// channel threads' marginals, end of phase 1), match (phases 2 and 3: the
-// totals of the sigma points, merged into the channel threads) and match_vjp
-// (the reverse of match, for the adjoint kernels).  R is a parameter of its
-// own so that the one-CTA instantiation folds it to 1.
+// A warp's share of a moment match: the per-point machinery of every ADF
+// kernel.  Each round the warp takes PT points (G lanes a point, PB points a
+// lane) from rows its caller hands it; each lane keeps its 17 totals under its
+// own running shift; merge_warp merges the groups of the warp.  Its caller
+// sets the fields: AdfStep (K3, K4, K5, K7, K8) for each warp of a CTA, K9
+// (fused_resite.cuh) for the one warp of a site.
 template <typename T, int PB>
-struct AdfStep {
-  static constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
-  AdfLayout L;
-  const T* xi;
-  const T* wn;
+struct AdfWarp {
+  static constexpr int DB = ADF_DB, NACC = ADF_NACC;
+  AdfLayout L;  // the lane map (adf_lane_map); in AdfStep the CTA's whole layout
   T sn2, sq_floor;
-  int D, N, S, R, rank, tid, w, lane, g_lane, grp, d0, round_pts, own, mslot;
-  int slots[3];  // where this channel's Z and two totals sit in a record
-  bool link_exp, sq, chan;
-  T* sh;
-  T* fmu_z;   // [Dp] subband means, zero beyond D
-  T* hph_z;   // [Dp] subband variances, zero beyond D
-  T* mu_g;    // [Dp] modulator means, zero beyond N
-  T* sd_g;    // [Dp] sqrt(max(s2_g, 0)), zero beyond N
-  T* Wt;      // [N][Dp] W transposed, zero beyond D
-  T* lk_w;    // [N][PT] this warp's link values
-  T* part;    // [NW][rec] the warps' partial records
-  T* cta_rec; // [2][rec] this CTA's merged record, double-buffered
-  const T* xi_sh;  // [nloc][N] this CTA's sigma points, in walking order
-  const T* wn_sh;  // [nloc]
-
-  __device__ __forceinline__ AdfStep(const AdfCore<T>& core, int b, const int R_, T* sh_)
-      : L(adf_layout(core.D, core.N, core.S, R_, sizeof(T))), xi(core.xi), wn(core.wn),
-        sq_floor(core.sq_floor), D(core.D), N(core.N), S(core.S), R(R_),
-        link_exp(core.link_exp != 0), sq(core.sq != 0), sh(sh_) {
-    tid = threadIdx.x;
-    w = tid >> 5;
-    lane = tid & 31;
-    rank = R > 1 ? (int)cg::this_cluster().block_rank() : 0;
-    g_lane = lane & (L.G - 1);
-    grp = lane >> L.lg;
-    d0 = g_lane * DB;  // this lane's subbands and modulators
-    const int Dp = L.Dp;
-    fmu_z = sh + L.fmu;
-    hph_z = sh + L.hph;
-    mu_g = sh + L.mug;
-    sd_g = sh + L.sdg;
-    Wt = sh + L.Wt;
-    lk_w = sh + L.lk + w * N * L.PT;
-    part = sh + L.part;
-    cta_rec = sh + L.cta;
-    xi_sh = sh + L.xi;
-    wn_sh = sh + L.wn;
-    // ---- once per launch: padding, W, the CTA's own sigma points ----------
-    round_pts = L.GC * PB;  // points a CTA takes per round
-    for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
-    const T* W = core.W + (size_t)b * D * N;
-    for (int i = tid; i < N * Dp; i += NT) {
-      const int n = i / Dp, d = i - n * Dp;
-      Wt[i] = d < D ? W[d * N + n] : T(0);
-    }
-    if (L.staged) {
-      T* xs = sh + L.xi;
-      T* ws = sh + L.wn;
-      for (int loc = tid; loc < L.nloc; loc += NT) {
-        const int kr = loc / round_pts;
-        const int s = (kr * R + rank) * round_pts + (loc - kr * round_pts);
-        ws[loc] = s < S ? wn[s] : T(0);
-        for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
-      }
-    }
-    sn2 = core.sn2[b];
-    chan = tid < D + N;  // channel tid of file b
-    own = tid < D ? tid : tid - D;
-    const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
-    slots[0] = 0;
-    slots[1] = k1;
-    slots[2] = k1 + DB;
-    mslot = L.G * NACC;
-  }
-
-  // End of phase 1, a channel thread of a matched step: its predicted
-  // marginal where the points read it (a modulator's sd = sqrt(max(var, 0))).
-  __device__ __forceinline__ void publish(T fmu, T var, T& sd) const {
-    if (tid < D) {
-      fmu_z[tid] = fmu;
-      hph_z[tid] = var;
-    } else {
-      sd = Num<T>::sqrt_(clamp_min(var, T(0)));
-      mu_g[own] = fmu;
-      sd_g[own] = sd;
-    }
-  }
-
-  // The warp's first point in round k, and the rows of its PT points:
-  // staged in walking order, or global.
-  __device__ __forceinline__ int first_point(int k) const {
-    return (k * R + rank) * round_pts + w * L.PT;
-  }
-  __device__ __forceinline__ const T* xi_rows(int k, int s0) const {
-    return L.staged ? xi_sh + (k * round_pts + w * L.PT) * N : xi + (size_t)s0 * N;
-  }
-  __device__ __forceinline__ const T* wn_rows(int k, int s0) const {
-    return L.staged ? wn_sh + k * round_pts + w * L.PT : wn + s0;
-  }
+  int N, S, lane, g_lane, grp, d0;
+  bool link_exp, sq;
+  T* fmu_z;  // [Dp] subband means, zero beyond D
+  T* hph_z;  // [Dp] subband variances, zero beyond D
+  T* mu_g;   // [Dp] modulator means, zero beyond N
+  T* sd_g;   // [Dp] sqrt(max(s2_g, 0)), zero beyond N
+  T* Wt;     // [N][Dp] W transposed, zero beyond D
+  T* lk_w;   // [N][PT] this warp's link values
 
   // Link values of the warp's PT points, shared out over the lanes, into the
   // warp's stash (zero past S).  One CTA a file runs one or two passes of
@@ -563,6 +484,228 @@ struct AdfStep {
     return !ok || ln == T(-INFINITY) ? T(0) : Num<T>::exp_(ln - m);
   }
 
+  // Phase 2, one round: the warp's PT points from s0 (rows xi_w, weights
+  // wn_w) into this lane's totals acc under its running shift m_run.
+  __device__ __forceinline__ void add_round(T yk, int s0, const T* xi_w, const T* wn_w,
+                                            T (&acc)[NACC], T& m_run, AdfProbe& probe) const {
+    link_values(s0, xi_w);
+    __syncwarp();
+    probe.mark(1);
+    T a[PB][DB];
+    amplitudes(a);
+    __syncwarp();  // the stash may be overwritten by the next round
+    probe.mark(2);
+    const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
+    const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
+    T se[PB], mean[PB];
+    point_sums(a, hz, mz, se, mean);
+    probe.mark(3);
+    // Per point: s2e, residual, log-normaliser; then the weights at the
+    // lane's shift, raised first if a point of this round exceeds it.
+    T wns[PB], wr[PB], wc[PB], al;
+    if (L.G >= PB) {
+      // lane p of the group does point p and hands its weights round
+      const int pm = g_lane & (PB - 1);
+      T se_m = se[0], mean_m = mean[0];
+#pragma unroll
+      for (int p = 1; p < PB; ++p)
+        if (pm == p) {
+          se_m = se[p];
+          mean_m = mean[p];
+        }
+      const bool ok = s0 + grp * PB + pm < S;
+      T rs, inv, ln;
+      scalars(yk, se_m, mean_m, rs, inv, ln);
+      T mx = ok && ln == ln ? ln : T(-INFINITY);  // a NaN never wins
+#pragma unroll
+      for (int off = 1; off < PB; off <<= 1) {
+        const T o = __shfl_xor_sync(0xffffffffu, mx, off);
+        mx = o > mx ? o : mx;
+      }
+      const T m_new = mx > m_run ? mx : m_run;
+      al = shift_scale(m_run, m_new);
+      m_run = m_new;
+      T wv = T(0);
+      if (ok) wv = wn_w[grp * PB + pm];
+      const T wns_m = wv * weight(ok, ln, m_new);
+      const T wr_m = wns_m * rs, wc_m = wns_m * (rs * rs - inv);
+      const int first = lane & ~(L.G - 1);
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        wns[p] = __shfl_sync(0xffffffffu, wns_m, first + p);
+        wr[p] = __shfl_sync(0xffffffffu, wr_m, first + p);
+        wc[p] = __shfl_sync(0xffffffffu, wc_m, first + p);
+      }
+    } else {
+      // fewer lanes than points (D, N <= ADF_DB * G): every lane does all
+      T rs[PB], inv[PB], ln[PB], m_new = m_run;
+      bool ok[PB];
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        ok[p] = s0 + grp * PB + p < S;
+        scalars(yk, se[p], mean[p], rs[p], inv[p], ln[p]);
+        if (ok[p] && ln[p] > m_new) m_new = ln[p];
+      }
+      al = shift_scale(m_run, m_new);
+      m_run = m_new;
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        T wv = T(0);
+        if (ok[p]) wv = wn_w[grp * PB + p];
+        wns[p] = wv * weight(ok[p], ln[p], m_new);
+        wr[p] = wns[p] * rs[p];
+        wc[p] = wns[p] * (rs[p] * rs[p] - inv[p]);
+      }
+    }
+    probe.mark(4);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] *= al;
+#pragma unroll
+    for (int p = 0; p < PB; ++p) {
+      const int pt = grp * PB + p;
+      if (s0 + pt < S) {
+        acc[0] += wns[p];
+#pragma unroll
+        for (int j = 0; j < DB; ++j) {
+          acc[1 + j] += wr[p] * a[p][j];
+          acc[1 + DB + j] += wc[p] * (a[p][j] * a[p][j]);
+          const T x = d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
+          // the unit point's first two weighted moments; the channel
+          // thread scales them to G1, G2 (rg and 1 / s2_g factor out)
+          acc[1 + 2 * DB + j] += wns[p] * x;
+          acc[1 + 3 * DB + j] += wns[p] * (x * x);
+        }
+      }
+    }
+    probe.mark(5);
+  }
+
+  // Phase 3's first merge: the groups of the warp, the warp's shift first, one
+  // rescale, then plain butterfly sums (every group ends with the warp's totals).
+  __device__ __forceinline__ void merge_warp(T (&acc)[NACC], T& m_run) const {
+    T mw = m_run;
+    for (int off = L.G; off < 32; off <<= 1) {
+      const T o = __shfl_xor_sync(0xffffffffu, mw, off);
+      mw = o > mw ? o : mw;
+    }
+    const T sc = shift_scale(m_run, mw);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] *= sc;
+    for (int off = L.G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    }
+    m_run = mw;
+  }
+};
+
+// One CTA's share of the moment match of a sweep over file b by its cluster
+// of R CTAs: the thread map, the shared layout, and what is staged once per
+// launch (the padding, W transposed, the CTA's own sigma points).  Built by
+// every thread; a __syncthreads() must follow before the first step.  Its
+// members are the phases of a step that every thread runs: publish (the
+// channel threads' marginals, end of phase 1), match (phases 2 and 3: the
+// totals of the sigma points, merged into the channel threads) and match_vjp
+// (the reverse of match, for the adjoint kernels).  R is a parameter of its
+// own so that the one-CTA instantiation folds it to 1.  The per-point work
+// is its base's, AdfWarp, which each warp runs on its share of the points.
+template <typename T, int PB>
+struct AdfStep : AdfWarp<T, PB> {
+  using W_ = AdfWarp<T, PB>;
+  using W_::L, W_::sn2, W_::sq_floor, W_::N, W_::S, W_::lane, W_::g_lane, W_::grp, W_::d0,
+      W_::link_exp, W_::sq, W_::fmu_z, W_::hph_z, W_::mu_g, W_::sd_g, W_::Wt, W_::lk_w,
+      W_::link_values, W_::amplitudes, W_::point_sums, W_::scalars, W_::weight;
+  static constexpr int NT = ADF_THREADS, NW = ADF_NW, DB = ADF_DB, NACC = ADF_NACC;
+  const T* xi;
+  const T* wn;
+  int D, R, rank, tid, w, round_pts, own, mslot;
+  int slots[3];  // where this channel's Z and two totals sit in a record
+  bool chan;
+  T* sh;
+  T* part;    // [NW][rec] the warps' partial records
+  T* cta_rec; // [2][rec] this CTA's merged record, double-buffered
+  const T* xi_sh;  // [nloc][N] this CTA's sigma points, in walking order
+  const T* wn_sh;  // [nloc]
+
+  __device__ __forceinline__ AdfStep(const AdfCore<T>& core, int b, const int R_, T* sh_)
+      : xi(core.xi), wn(core.wn), D(core.D), R(R_), sh(sh_) {
+    L = adf_layout(core.D, core.N, core.S, R_, sizeof(T));
+    sq_floor = core.sq_floor;
+    N = core.N;
+    S = core.S;
+    link_exp = core.link_exp != 0;
+    sq = core.sq != 0;
+    tid = threadIdx.x;
+    w = tid >> 5;
+    lane = tid & 31;
+    rank = R > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    g_lane = lane & (L.G - 1);
+    grp = lane >> L.lg;
+    d0 = g_lane * DB;  // this lane's subbands and modulators
+    const int Dp = L.Dp;
+    fmu_z = sh + L.fmu;
+    hph_z = sh + L.hph;
+    mu_g = sh + L.mug;
+    sd_g = sh + L.sdg;
+    Wt = sh + L.Wt;
+    lk_w = sh + L.lk + w * N * L.PT;
+    part = sh + L.part;
+    cta_rec = sh + L.cta;
+    xi_sh = sh + L.xi;
+    wn_sh = sh + L.wn;
+    // ---- once per launch: padding, W, the CTA's own sigma points ----------
+    round_pts = L.GC * PB;  // points a CTA takes per round
+    for (int i = tid; i < 4 * Dp; i += NT) sh[L.fmu + i] = T(0);
+    const T* W = core.W + (size_t)b * D * N;
+    for (int i = tid; i < N * Dp; i += NT) {
+      const int n = i / Dp, d = i - n * Dp;
+      Wt[i] = d < D ? W[d * N + n] : T(0);
+    }
+    if (L.staged) {
+      T* xs = sh + L.xi;
+      T* ws = sh + L.wn;
+      for (int loc = tid; loc < L.nloc; loc += NT) {
+        const int kr = loc / round_pts;
+        const int s = (kr * R + rank) * round_pts + (loc - kr * round_pts);
+        ws[loc] = s < S ? wn[s] : T(0);
+        for (int n = 0; n < N; ++n) xs[loc * N + n] = s < S ? xi[(size_t)s * N + n] : T(0);
+      }
+    }
+    sn2 = core.sn2[b];
+    chan = tid < D + N;  // channel tid of file b
+    own = tid < D ? tid : tid - D;
+    const int k1 = (own / DB) * NACC + 1 + (tid < D ? 0 : 2 * DB) + own % DB;
+    slots[0] = 0;
+    slots[1] = k1;
+    slots[2] = k1 + DB;
+    mslot = L.G * NACC;
+  }
+
+  // End of phase 1, a channel thread of a matched step: its predicted
+  // marginal where the points read it (a modulator's sd = sqrt(max(var, 0))).
+  __device__ __forceinline__ void publish(T fmu, T var, T& sd) const {
+    if (tid < D) {
+      fmu_z[tid] = fmu;
+      hph_z[tid] = var;
+    } else {
+      sd = Num<T>::sqrt_(clamp_min(var, T(0)));
+      mu_g[own] = fmu;
+      sd_g[own] = sd;
+    }
+  }
+
+  // The warp's first point in round k, and the rows of its PT points:
+  // staged in walking order, or global.
+  __device__ __forceinline__ int first_point(int k) const {
+    return (k * R + rank) * round_pts + w * L.PT;
+  }
+  __device__ __forceinline__ const T* xi_rows(int k, int s0) const {
+    return L.staged ? xi_sh + (k * round_pts + w * L.PT) * N : xi + (size_t)s0 * N;
+  }
+  __device__ __forceinline__ const T* wn_rows(int k, int s0) const {
+    return L.staged ? wn_sh + k * round_pts + w * L.PT : wn + s0;
+  }
+
   // Phases 2 and 3 of a matched step (after every channel thread's publish):
   // the channel threads get their Z and two totals at the merged shift
   // m_all.  n_seen (matched steps so far) picks the cluster's buffer.
@@ -578,115 +721,10 @@ struct AdfStep {
     for (int k = 0;; ++k) {
       const int s0 = first_point(k);
       if (s0 >= S) break;  // uniform over the warp
-      const T* xi_w = xi_rows(k, s0);
-      const T* wn_w = wn_rows(k, s0);
-      link_values(s0, xi_w);
-      __syncwarp();
-      probe.mark(1);
-      T a[PB][DB];
-      amplitudes(a);
-      __syncwarp();  // the stash may be overwritten by the next round
-      probe.mark(2);
-      const Pack<T, DB> hz = *reinterpret_cast<const Pack<T, DB>*>(hph_z + d0);
-      const Pack<T, DB> mz = *reinterpret_cast<const Pack<T, DB>*>(fmu_z + d0);
-      T se[PB], mean[PB];
-      point_sums(a, hz, mz, se, mean);
-      probe.mark(3);
-      // Per point: s2e, residual, log-normaliser; then the weights at the
-      // lane's shift, raised first if a point of this round exceeds it.
-      T wns[PB], wr[PB], wc[PB], al;
-      if (L.G >= PB) {
-        // lane p of the group does point p and hands its weights round
-        const int pm = g_lane & (PB - 1);
-        T se_m = se[0], mean_m = mean[0];
-#pragma unroll
-        for (int p = 1; p < PB; ++p)
-          if (pm == p) {
-            se_m = se[p];
-            mean_m = mean[p];
-          }
-        const bool ok = s0 + grp * PB + pm < S;
-        T rs, inv, ln;
-        scalars(yk, se_m, mean_m, rs, inv, ln);
-        T mx = ok && ln == ln ? ln : T(-INFINITY);  // a NaN never wins
-#pragma unroll
-        for (int off = 1; off < PB; off <<= 1) {
-          const T o = __shfl_xor_sync(0xffffffffu, mx, off);
-          mx = o > mx ? o : mx;
-        }
-        const T m_new = mx > m_run ? mx : m_run;
-        al = shift_scale(m_run, m_new);
-        m_run = m_new;
-        T wv = T(0);
-        if (ok) wv = wn_w[grp * PB + pm];
-        const T wns_m = wv * weight(ok, ln, m_new);
-        const T wr_m = wns_m * rs, wc_m = wns_m * (rs * rs - inv);
-        const int first = lane & ~(L.G - 1);
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          wns[p] = __shfl_sync(0xffffffffu, wns_m, first + p);
-          wr[p] = __shfl_sync(0xffffffffu, wr_m, first + p);
-          wc[p] = __shfl_sync(0xffffffffu, wc_m, first + p);
-        }
-      } else {
-        // fewer lanes than points (D, N <= ADF_DB * G): every lane does all
-        T rs[PB], inv[PB], ln[PB], m_new = m_run;
-        bool ok[PB];
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          ok[p] = s0 + grp * PB + p < S;
-          scalars(yk, se[p], mean[p], rs[p], inv[p], ln[p]);
-          if (ok[p] && ln[p] > m_new) m_new = ln[p];
-        }
-        al = shift_scale(m_run, m_new);
-        m_run = m_new;
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          T wv = T(0);
-          if (ok[p]) wv = wn_w[grp * PB + p];
-          wns[p] = wv * weight(ok[p], ln[p], m_new);
-          wr[p] = wns[p] * rs[p];
-          wc[p] = wns[p] * (rs[p] * rs[p] - inv[p]);
-        }
-      }
-      probe.mark(4);
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] *= al;
-#pragma unroll
-      for (int p = 0; p < PB; ++p) {
-        const int pt = grp * PB + p;
-        if (s0 + pt < S) {
-          acc[0] += wns[p];
-#pragma unroll
-          for (int j = 0; j < DB; ++j) {
-            acc[1 + j] += wr[p] * a[p][j];
-            acc[1 + DB + j] += wc[p] * (a[p][j] * a[p][j]);
-            const T x = d0 + j < N ? xi_w[pt * N + d0 + j] : T(0);
-            // the unit point's first two weighted moments; the channel
-            // thread scales them to G1, G2 (rg and 1 / s2_g factor out)
-            acc[1 + 2 * DB + j] += wns[p] * x;
-            acc[1 + 3 * DB + j] += wns[p] * (x * x);
-          }
-        }
-      }
-      probe.mark(5);
+      this->add_round(yk, s0, xi_rows(k, s0), wn_rows(k, s0), acc, m_run, probe);
     }
     // ---- 3. merge: groups of a warp, warps of a CTA, CTAs of a cluster --
-    {  // the warp's shift first, one rescale, then plain butterfly sums
-      T mw = m_run;
-      for (int off = L.G; off < 32; off <<= 1) {
-        const T o = __shfl_xor_sync(0xffffffffu, mw, off);
-        mw = o > mw ? o : mw;
-      }
-      const T sc = shift_scale(m_run, mw);
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] *= sc;
-      for (int off = L.G; off < 32; off <<= 1) {
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-      }
-      m_run = mw;
-    }
+    this->merge_warp(acc, m_run);
     if (grp == 0) {  // group 0 holds the warp's record
       T* pr = part + w * L.rec;
 #pragma unroll

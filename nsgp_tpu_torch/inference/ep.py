@@ -24,14 +24,16 @@ Two backends:
   pseudo-prediction ridge) acts where JAX's does, on the one-level path; the
   blocked and fused passes ignore it, as JAX's blocked and Pallas passes do.
 - ``"fused"`` (JAX ``"pallas"``): the fused passes of ``ops.fused_kalman``
-  and the all-T re-site.  On CUDA tensors every pass is one hand-written
-  kernel launch; on CPU tensors the same passes run as their plain torch
-  versions.
+  and the all-T re-site.  On CUDA tensors every pass, and every re-site
+  (K9), is one hand-written kernel launch; on CPU tensors the same passes run
+  as their plain torch versions.
 
 ``ep_energy`` is the energy mode, whatever the backend: sweep 1 through
 ``fused_kalman.FusedADF`` (K3 forward, its adjoint K7 backward; their plain
-twins on the CPU), later sweeps the sequential engine under autograd;
-differentiable with respect to every ``GTNMFParams`` leaf.
+twins on the CPU), later sweeps the sequential engine under autograd, whose
+re-sites are ``fused_kalman.FusedResite`` on the card (K9 forward, its plain
+twin's VJP backward); differentiable with respect to every ``GTNMFParams``
+leaf.
 
 Sharding over a mesh (``parallel.mesh``; the axis names resolve against the
 ambient mesh of ``parallel.mesh.set_mesh``).  Every rank returns the same
@@ -65,7 +67,7 @@ from nsgp_tpu_torch.ops import bscan, fused_kalman, kalman, pscan
 from nsgp_tpu_torch.ops.kalman import PackedTrajectory, Sites
 from nsgp_tpu_torch.ops.ssm import BlockSSM
 from nsgp_tpu_torch.parallel.collectives import all_reduce, gather, mesh_axis, scatter
-from nsgp_tpu_torch.ops.moments import moments, moments_chunked
+from nsgp_tpu_torch.ops.moments import moments
 from nsgp_tpu_torch.utils.device import place_inputs
 from nsgp_tpu_torch.utils.precision import full_fp32
 from nsgp_tpu_torch.utils.trace import span, spanned
@@ -154,30 +156,19 @@ def _ep_resite(
 
     Ref gf_ep_modulator_nmf.m:240-267.  ``exclude_last`` reproduces the
     reference's backward loop, which never re-sites the last step (the
-    sequential backend sets it; the fused backend re-sites all T).
+    sequential backend sets it; the fused backend re-sites all T).  Through
+    ``fused_kalman.fused_resite``: K9, one launch, on CUDA tensors (under
+    autograd its backward recomputes the plain twin); the plain twin
+    ``fused_resite_plain`` on CPU tensors (``moments_chunked`` in chunks of
+    ``cfg.moment_chunk`` sites).
     """
     if exclude_last:
         mask = mask.clone()
         mask[-1] = False
-    frac = cfg.ep_fraction
-    mp = model.moment_params()
-    v_cav_raw = 1.0 / (1.0 / var - frac * sites.ttau)
-    ok = (v_cav_raw > 0.0) & mask[:, None]
-    v_cav = torch.where(ok, v_cav_raw, torch.ones_like(v_cav_raw))
-    m_cav = torch.where(ok, v_cav_raw * (mu / var - frac * sites.tnu),
-                        torch.zeros_like(v_cav_raw))
-
-    lZ, dlZ, d2lZ = moments_chunked(
-        mp, params.lik, y, m_cav, v_cav, params.W, frac, chunk=cfg.moment_chunk
-    )
-    lZ = torch.where(mask, lZ, torch.zeros_like(lZ))
-
-    denom = 1.0 + d2lZ * v_cav
-    ttau_prop = (1.0 - damp * frac) * sites.ttau + damp * (-d2lZ / denom)
-    tnu_prop = (1.0 - damp * frac) * sites.tnu + damp * ((dlZ - m_cav * d2lZ) / denom)
-    ttau = torch.where(ok, ttau_prop, sites.ttau)
-    tnu = torch.where(ok, tnu_prop, sites.tnu)
-    return Sites(torch.clamp_min(ttau, 0.0), tnu), lZ
+    ttau, tnu, lZ = fused_kalman.fused_resite(
+        model.moment_params(), y, mask, mu, var, sites.ttau, sites.tnu, params.W, params.lik,
+        frac=cfg.ep_fraction, damp=damp, chunk=cfg.moment_chunk)
+    return Sites(ttau, tnu), lZ
 
 
 def _forward_backward(ssm, sites: Sites, cfg: EPConfig, time=None, T=None):

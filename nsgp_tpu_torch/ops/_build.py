@@ -55,6 +55,8 @@ _SIGNATURES = {
     "nsgp_ihgp_adf_vjp_scratch": ([_i, _i, _i, _i], ctypes.c_longlong),
     "nsgp_fused_ihgp_adf_vjp_f32": ([_i] + [_p] * 21 + [_d] * 4 + [_i] * 7 + [_p] * 8, _i),
     "nsgp_fused_ihgp_adf_vjp_f64": ([_i] + [_p] * 21 + [_d] * 4 + [_i] * 7 + [_p] * 8, _i),
+    "nsgp_fused_resite_f32": ([_p] * 11 + [_d] * 4 + [_i] * 6 + [_p] * 4, _i),
+    "nsgp_fused_resite_f64": ([_p] * 11 + [_d] * 4 + [_i] * 6 + [_p] * 4, _i),
 }
 
 

@@ -2,9 +2,10 @@
 
 Port of ``nsgp_tpu/ops/pallas_kalman.py``, and of the transposed scan that
 ``jax.value_and_grad`` derives from ``nsgp_tpu/ops/kalman.py:adf_filter``.
-Five kernels, each a whole pass over T (``csrc/fused_kalman.cuh``,
-``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``, ``csrc/fused_adf_vjp.cuh``;
-K3, K4 and K7 share their step, ``csrc/adf_step.cuh``).  K3, K4 and K7 are
+Six kernels, each a whole pass over T (``csrc/fused_kalman.cuh``,
+``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``, ``csrc/fused_adf_vjp.cuh``,
+``csrc/fused_resite.cuh``; K3, K4, K7 and K9 share their per-point moment
+match, ``csrc/adf_step.cuh``).  K3, K4, K7 and K9 are
 one launch each; K1 and K2, whose steps compose, run as three blocked
 parallel-in-time launches over chunks of T (``chunk_length``), of which
 ``fused_*_blocked_plain`` are the plain versions:
@@ -16,8 +17,13 @@ parallel-in-time launches over chunks of T (``chunk_length``), of which
                         CTAs a file, sigma points streamed
     fused_adf_vjp (K7)  K3's sweep in reverse: cotangents  <- the transpose
                         of its outputs to its parameters'     of adf_filter
+    fused_resite  (K9)  the all-T EP re-site: each site's  <- none (XLA ops
+                        cavity, moment match and update       in the JAX
+                        in one launch, a warp a site          package)
 
-``FusedADF`` binds K3 and K7 as one ``torch.autograd.Function``.
+``FusedADF`` binds K3 and K7 as one ``torch.autograd.Function``;
+``FusedResite`` binds K9 to the VJP of its plain twin, recomputed in its
+backward (K9 has no adjoint kernel yet).
 
 Each wrapper does exactly one of two things: on CPU tensors it runs its
 plain PyTorch version (``*_plain``, same step order: predict from (0, Pinf)
@@ -45,7 +51,8 @@ import math
 import torch
 
 from nsgp_tpu_torch.ops.kalman import Sites
-from nsgp_tpu_torch.ops.moments import LINKS, MomentParams, sigma_points
+from nsgp_tpu_torch.ops.moments import (LINKS, MomentParams, _log_floor, moments_chunked,
+                                         sigma_points)
 from nsgp_tpu_torch.ops.ssm import BlockSSM
 from nsgp_tpu_torch.utils.trace import launched, span
 
@@ -748,6 +755,32 @@ def merge_shifted_partials(shifts, totals):
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m)), out
 
 
+def fused_resite_plain(mp: MomentParams, y, mask, mu, var, ttau, tnu, W, sn2, *, frac, damp,
+                       chunk=4096):
+    """K9 reference, and the re-site on CPU tensors and in ``FusedResite``'s
+    backward: EP site re-matching at the smoothed cavity for all T at once (ref
+    gf_ep_modulator_nmf.m:240-267).
+
+    y, mask (T,); mu, var (T, C) smoothed observable marginals; ttau, tnu
+    (T, C) the sites.  Returns the damped, clamped sites (T, C) and lZ (T,)
+    (0 where mask is False).  A channel whose cavity variance is not positive
+    keeps its site and enters the match at (0, 1).  ``moments_chunked`` takes
+    ``chunk`` sites at a time."""
+    v_cav_raw = 1.0 / (1.0 / var - frac * ttau)
+    ok = (v_cav_raw > 0.0) & mask[:, None]
+    v_cav = torch.where(ok, v_cav_raw, torch.ones_like(v_cav_raw))
+    m_cav = torch.where(ok, v_cav_raw * (mu / var - frac * tnu), torch.zeros_like(v_cav_raw))
+
+    lZ, dlZ, d2lZ = moments_chunked(mp, sn2, y, m_cav, v_cav, W, frac, chunk=chunk)
+    lZ = torch.where(mask, lZ, torch.zeros_like(lZ))
+
+    denom = 1.0 + d2lZ * v_cav
+    ttau_prop = (1.0 - damp * frac) * ttau + damp * (-d2lZ / denom)
+    tnu_prop = (1.0 - damp * frac) * tnu + damp * ((dlZ - m_cav * d2lZ) / denom)
+    return (torch.clamp_min(torch.where(ok, ttau_prop, ttau), 0.0),
+            torch.where(ok, tnu_prop, tnu), lZ)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -784,10 +817,11 @@ def _launch(name: str, fn, *args, device) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (code {rc}: {why})")
 
 
-def _check_shapes(name: str, bs: int, T: int, **expected) -> None:
+def _check_shapes(name: str, bs, T: int, **expected) -> None:
     """The kernels index raw pointers: refuse a block size they do not
-    instantiate, an empty signal, or any tensor whose shape disagrees."""
-    if not 1 <= bs <= MAX_BLOCK:
+    instantiate (None: a kernel without one), an empty signal, or any tensor
+    whose shape disagrees."""
+    if bs is not None and not 1 <= bs <= MAX_BLOCK:
         raise ValueError(f"fused kernels support block sizes 1..{MAX_BLOCK}, got {bs}")
     if T < 1:
         raise ValueError(f"{name} needs T >= 1")
@@ -1057,7 +1091,83 @@ def fused_adf_mb(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, 
         return ms, Ps, lZ, tt, tn
 
 
-WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb, fused_adf_vjp)
+class FusedResite(torch.autograd.Function):
+    """K9 forward; backward the VJP of its plain twin, recomputed at the
+    saved inputs (K9 has no adjoint of its own): differentiable in mu, var,
+    ttau, tnu, W and sn2 (y and mask get none), once.  ``kw`` holds mp, frac,
+    damp and the twin's ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, y, mask, mu, var, ttau, tnu, W, sn2, kw):
+        mp, frac, damp, _ = kw
+        ctx.save_for_backward(y, mask, mu, var, ttau, tnu, W, sn2)
+        ctx.kw = kw
+        return _resite_launch(mp, y, mask, mu, var, ttau, tnu, W, sn2, frac=frac, damp=damp)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_tt, g_tn, g_lZ):
+        y, mask, *xs = ctx.saved_tensors
+        mp, frac, damp, chunk = ctx.kw
+        need = ctx.needs_input_grad[2:8]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(xs, need)]
+            outs = fused_resite_plain(mp, y, mask, *leaves, frac=frac, damp=damp, chunk=chunk)
+            outs, gs = zip(*[(o, g) for o, g in zip(outs, (g_tt, g_tn, g_lZ)) if o.requires_grad])
+            grads = iter(torch.autograd.grad(outs, [x for x in leaves if x.requires_grad], gs,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in need), None)
+
+
+def fused_resite(mp: MomentParams, y, mask, mu, var, ttau, tnu, W, sn2, *, frac, damp,
+                 chunk=4096):
+    """K9: the all-T EP re-site in one launch, a warp a site (see
+    ``fused_resite_plain``), through ``FusedResite``, whose backward
+    recomputes the plain twin.  ``chunk`` is read only where the twin runs:
+    on CPU tensors and in that backward.  'sq' amplitudes take
+    sqrt(max(a, tiny)) with tiny the dtype's smallest normal."""
+    if mask.device != mu.device or mask.dtype != torch.bool:
+        raise ValueError(f"fused_resite needs a bool mask on {mu.device}, got {mask.dtype} "
+                         f"on {mask.device}")
+    if _on_cpu(y, mu, var, ttau, tnu, W):
+        return fused_resite_plain(mp, y, mask, mu, var, ttau, tnu, W, sn2, frac=frac, damp=damp,
+                                  chunk=chunk)
+    with launched(fused_resite, "nsgp.K9"):
+        sn2 = torch.as_tensor(sn2, dtype=mu.dtype, device=mu.device)
+        return FusedResite.apply(y, mask, mu, var, ttau, tnu, W, sn2, (mp, frac, damp, chunk))
+
+
+def _resite_launch(mp: MomentParams, y, mask, mu, var, ttau, tnu, W, sn2, *, frac, damp):
+    """K9's launch on CUDA tensors (``FusedResite.forward``)."""
+    from nsgp_tpu_torch.ops import _build
+
+    T, C = mu.shape
+    D, N = W.shape
+    dt_, dev = mu.dtype, mu.device
+    wn, xi = sigma_points(mp, dt_, dev)
+    S = wn.shape[0]
+    if (mp.D, mp.N) != (D, N):
+        raise ValueError(f"fused_resite: W is {D} x {N}, the moment rule {mp.D} x {mp.N}")
+    _check_shapes("fused_resite", None, T, y=(y, (T,)), mask=(mask, (T,)), var=(var, (T, C)),
+                  ttau=(ttau, (T, C)), tnu=(tnu, (T, C)))
+    lib = _build.library()
+    _check_adf("fused_resite", lib, C, D, N, S, mp.link, mp.variant)
+    pep = None
+    if mp.use_pep_const:  # the constant ``moments`` adds to lZ, as it forms it
+        pep_const = (2.0 * math.pi * sn2) ** (0.5 * (1.0 - frac)) * frac ** (-0.5)
+        pep = torch.log(torch.as_tensor(pep_const, dtype=dt_, device=dev)).reshape(1)
+    args = [x.contiguous() for x in (y, mask, mu, var, ttau, tnu, W, xi, wn, sn2.reshape(1))]
+    tt_out = torch.empty((T, C), dtype=dt_, device=dev)
+    tn_out = torch.empty((T, C), dtype=dt_, device=dev)
+    lZ = torch.empty((T,), dtype=dt_, device=dev)
+    _launch("fused_resite", _by_dtype(lib, "nsgp_fused_resite", dt_), *map(_ptr, args),
+            _opt_ptr(pep), float(frac), float(damp), _log_floor(mp.z_floor, dt_),
+            torch.finfo(dt_).tiny, T, D, N, S, int(mp.link == "exp"),
+            int(mp.variant == "sq"), _ptr(tt_out), _ptr(tn_out), _ptr(lZ), device=dev)
+    return tt_out, tn_out, lZ
+
+
+WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb, fused_adf_vjp, fused_resite)
 
 
 def reset_launches() -> None:

@@ -5,8 +5,9 @@
 Prints the build's wall time, the card's name and power limit, and for each
 kernel at the given block sizes (default: 4, the matern32/matern52 models)
 and both dtypes its registers, spill bytes and stack frame, read from the
-build log (``-Xptxas -v``).  Needs nvcc; the numbers are the compiler's, not
-measurements of the card.
+build log (``-Xptxas -v``).  K9 (``fused_resite_kernel``) has no block size:
+its number is the sigma points a lane (2, or 4 above 512 points).  Needs
+nvcc; the numbers are the compiler's, not measurements of the card.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from nsgp_tpu_torch.ops import _build
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _KERNEL = re.compile(r"((?:fused_adf_vjp|fused_adf_mb|fused_adf|fused_ihgp_adf_vjp|fused_ihgp_adf"
-                     r"|fused_ihgp_smooth"
+                     r"|fused_ihgp_smooth|fused_resite"
                      r"|(?:fwd|bwd)_(?:totals|carry|emit))_kernel)"
                      r"I([fd])Li(\d+)E")
 

@@ -2,7 +2,7 @@
 
 A span names a phase of an entry point (``nsgp.assemble``, ``nsgp.sweep1``,
 ``nsgp.resite``, ``nsgp.pass``, ``nsgp.readout``, ...) or one hand-written
-kernel's launch (``nsgp.K1`` .. ``nsgp.K8``).  While a profiler session
+kernel's launch (``nsgp.K1`` .. ``nsgp.K9``).  While a profiler session
 records, a span is ``torch.profiler.record_function``: it lands in the same
 trace as the CUDA kernels, on the profiler's one clock, nested in the span
 that caused it.  While none records, a span costs one flag check and nothing

@@ -30,6 +30,13 @@ under a table lookup) and K6 (the steady smoother), are held against their
 plain twins with a NaN gap, fixed non-zero sites on unobserved steps, sites
 at exactly 0, 'sq' and 'exp', at mixture width (a cluster of eight CTAs)
 and, for K6, at every block size and at lengths around its block of steps.
+K9, the all-T EP re-site, is held against its plain twin (the CPU's
+re-site, recomputed in its backward) in float64 at 1e-11 at 77 and 3973
+sigma points (one ill-conditioned site at 5e-9), both
+links and variants, a masked run, ``exclude_last``, ``use_pep_const``, a
+channel whose cavity variance is not positive and an outlier on the Z floor;
+its float32 against its float64 at T = 4096; and its launches a call of
+each entry point.
 The plain-torch engines (the training path, IHGP's DARE bank and steady
 passes in their three forms) run on the card against the same code on the
 CPU, IHGP's through K5 and K6 on the card.
@@ -42,8 +49,10 @@ import numpy as np
 import pytest
 import torch
 
+from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_kalman as fk
+from nsgp_tpu_torch.ops.kalman import Sites
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 T = 64
@@ -640,7 +649,8 @@ def test_ep_energy_gradient_card_matches_cpu(cuda, itts):
     card = _grads(energy, params, cuda)
     assert card[0].device.type == "cuda"
     assert {fn.__name__: fn.launches for fn in fk.WRAPPERS} == {
-        "fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1}
+        "fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1,
+        "fused_resite": itts - 1}
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
 
 
@@ -1124,7 +1134,7 @@ def test_channel_sharded_fused_ep_on_card(cuda, tmp_path):
     for r in ranks:
         assert r["device"] == "cuda" and r["rel"] <= TOL[torch.float64], r
         assert r["launches"] == {"fused_fwd": 2, "fused_bwd": 3, "fused_adf": 1,
-                                 "fused_adf_mb": 0, "fused_adf_vjp": 0}, r
+                                 "fused_adf_mb": 0, "fused_adf_vjp": 0, "fused_resite": 2}, r
 
 
 @pytest.mark.cuda
@@ -1141,3 +1151,175 @@ def test_channel_sharded_fused_ep_over_nccl(cuda, tmp_path):
         assert r["device"] == "cuda" and r["index"] == rank, r
         assert r["rel"] <= TOL[torch.float64], r
         assert r["launches"]["fused_adf"] == 1, r
+
+
+# ---------------------------------------------------------------------------
+# K9, the all-T re-site, against its plain twin (the re-site's path under
+# autograd and on the CPU), and where the entry points launch it
+# ---------------------------------------------------------------------------
+
+
+def _resite_case(D, N, steps, dtype, dev, link="softplus", variant="sq", pep=False,
+                 tt_hi=2.0, seed=0):
+    """A model of D subbands and N modulators (77 sigma points at N = 3,
+    3973 at N = 9) with marginals and sites of ``steps`` steps: a masked run
+    (NaN in y), a subband and a modulator whose cavity variance is not
+    positive (their sites are kept), and an outlier whose every
+    log-normaliser lies under the raw-scale Z floor."""
+    rng = np.random.default_rng(seed)
+    model = GTNMFModel(D=D, N=N, kernel1="exp", kernel2="matern52", link=link, variant=variant,
+                       p_cubature=9, use_pep_const=pep)
+    params = GTNMFParams(
+        lik=np.float64(0.05), sub_var=np.linspace(0.5, 1.5, D) / D,
+        sub_len=np.linspace(20.0, 80.0, D), omega=np.linspace(0.1, 2.5, D),
+        mod_var=np.full(N, 0.5), mod_len=np.linspace(300.0, 600.0, N),
+        W=rng.uniform(0.2, 1.0, (D, N)),
+    ).to(dtype=dtype, device=dev)
+    C = D + N
+    f = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    mu, var = f(rng.normal(size=(steps, C)) * 0.5), f(rng.uniform(0.05, 1.5, (steps, C)))
+    tt, tn = f(rng.uniform(0.0, tt_hi, (steps, C))), f(rng.normal(size=(steps, C)))
+    tt[1, 0] = tt[2, D] = 50.0
+    y = f(rng.normal(size=steps))
+    y[3] = 1e6
+    mask = torch.ones(steps, dtype=torch.bool, device=dev)
+    mask[5:9] = False
+    y[5:9] = float("nan")
+    return model, params, y, mask, mu, var, Sites(tt, tn)
+
+
+def _resite_pair(model, params, y, mask, mu, var, sites, exclude_last=False):
+    """K9 through ``_ep_resite`` and the plain twin on the same card tensors."""
+    from nsgp_tpu_torch.inference import ep as ep_mod
+
+    cfg = EPConfig(ep_fraction=0.75)
+    got, lZ = ep_mod._ep_resite(model, params, cfg, y, mask, mu, var, sites, 0.3, exclude_last)
+    ref_mask = mask.clone()
+    if exclude_last:
+        ref_mask[-1] = False
+    ref = fk.fused_resite_plain(model.moment_params(), y, ref_mask, mu, var, sites.ttau,
+                                sites.tnu, params.W, params.lik, frac=0.75, damp=0.3)
+    return (got.ttau, got.tnu, lZ), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N,link,variant,pep,exclude_last", [
+    (16, 3, "softplus", "sq", False, False),
+    (16, 3, "softplus", "amp", False, False),
+    (16, 3, "exp", "sq", False, True),
+    (16, 3, "exp", "amp", False, False),
+    (16, 3, "softplus", "sq", True, False),  # use_pep_const
+    (3, 2, "softplus", "amp", False, True),  # one lane a point: every lane does all its points
+    (48, 9, "softplus", "sq", False, False),  # mixture width, 3973 points
+    (48, 9, "exp", "sq", True, True),
+])
+def test_resite_kernel_matches_plain(cuda, D, N, link, variant, pep, exclude_last):
+    """float64 K9 against the plain twin at rtol 1e-11 of each output's
+    largest value; the same bits twice; masked steps keep their (clamped)
+    sites and read lZ = 0."""
+    steps = 24 if N == 9 else 64
+    case = _resite_case(D, N, steps, torch.float64, cuda, link, variant, pep)
+    fk.reset_launches()
+    got, ref = _resite_pair(*case, exclude_last=exclude_last)
+    assert fk.fused_resite.launches == 1
+    assert _rel(got, ref) <= 1e-11
+    again, _ = _resite_pair(*case, exclude_last=exclude_last)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    sites = case[-1]
+    assert torch.equal(got[0][5:9], sites.ttau[5:9].clamp_min(0.0))
+    assert torch.equal(got[1][5:9], sites.tnu[5:9]) and float(got[2][5:9].abs().max()) == 0.0
+    assert float(got[0][1, 0]) == 50.0 and float(got[0][2, D]) == 50.0  # v_raw <= 0: kept
+    if not pep:
+        assert float(got[2][3]) == pytest.approx(np.log(1e-10), rel=1e-12)  # on the Z floor
+    if exclude_last:
+        assert float(got[2][-1]) == 0.0
+
+
+@pytest.mark.cuda
+def test_resite_kernel_on_an_ill_conditioned_site(cuda):
+    """'exp' amplitudes at mixture width: one modulator's update has
+    1 + d2 v_cav = 1.85e-4, so both float64 paths lose about four digits
+    there (K9 1.6e-9 and the plain twin 2.4e-9 from an 80-bit evaluation of
+    the same site; they read 1.7e-9 apart).  K9 and the twin agree within
+    5e-9 of each output's largest value."""
+    from nsgp_tpu_torch.ops.moments import moments_chunked
+
+    case = _resite_case(48, 9, 24, torch.float64, cuda, "exp", "amp")
+    model, params, y, mask, mu, var, sites = case
+    vraw = 1.0 / (1.0 / var - 0.75 * sites.ttau)
+    ok = (vraw > 0.0) & mask[:, None]
+    vc = torch.where(ok, vraw, torch.ones_like(vraw))
+    mc = torch.where(ok, vraw * (mu / var - 0.75 * sites.tnu), torch.zeros_like(vraw))
+    d2 = moments_chunked(model.moment_params(), params.lik, y, mc, vc, params.W, 0.75)[2]
+    den = float((1.0 + d2 * vc)[ok].min())
+    assert 1e-4 < den < 1e-3
+    got, ref = _resite_pair(*case)
+    assert _rel(got, ref) <= 5e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N", [(16, 3), (48, 9)])
+def test_resite_kernel_float32_follows_float64(cuda, D, N):
+    """K9 in float32 against K9 in float64 on the same inputs, T = 4096,
+    within 5e-5 of each output's largest value."""
+    case = _resite_case(D, N, 4096, torch.float64, cuda, tt_hi=0.5)
+    model, params, y, mask, mu, var, sites = case
+    f64 = _resite_pair(*case)[0]
+    to32 = lambda x: x.to(torch.float32)
+    params32 = GTNMFParams(*(to32(x) for x in params.leaves()))
+    f32 = _resite_pair(model, params32, to32(y), mask, to32(mu), to32(var),
+                       Sites(to32(sites.ttau), to32(sites.tnu)))[0]
+    assert all(bool(torch.isfinite(x).all()) for x in f32)
+    assert _rel([x.double() for x in f32], f64) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_resite_refuses_what_it_cannot_run(cuda):
+    model, params, y, mask, mu, var, sites = _resite_case(16, 3, 16, torch.float64, cuda)
+    mp = model.moment_params()
+    kw = dict(frac=0.75, damp=0.3)
+    fk.reset_launches()
+    with pytest.raises(ValueError, match="bool mask"):
+        fk.fused_resite(mp, y, mask.double(), mu, var, sites.ttau, sites.tnu, params.W,
+                        params.lik, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fk.fused_resite(mp, y, mask, mu, var[:, :-1], sites.ttau, sites.tnu, params.W,
+                        params.lik, **kw)
+    with pytest.raises(TypeError):
+        fk.fused_resite(mp, y.float(), mask, mu, var, sites.ttau, sites.tnu, params.W,
+                        params.lik, **kw)
+    assert fk.fused_resite.launches == 0
+
+
+@pytest.mark.cuda
+def test_entry_points_launch_the_resite_kernel(cuda):
+    """K9 launches: ``ep_infer`` (fused, 3 sweeps) 2; ``separate`` (10 sweeps)
+    9; ``fill_gaps_batch`` 0 at one sweep and BF at two; ``ep_energy`` (3
+    sweeps) 2 for its value and gradient: the backward recomputes the plain
+    twin and launches none."""
+    from nsgp_tpu_torch.inference.ep import ep_energy
+    from nsgp_tpu_torch.apps.missing_data import fill_gaps_batch
+    from nsgp_tpu_torch.apps.source_sep import separate
+
+    model, params, _, _, _ = _case("matern32", "matern52", 3, 2, torch.float32, cuda)
+    ys = [sample_prior(torch.Generator().manual_seed(s), model, params, 128)[0] for s in (1, 2)]
+    runs = {
+        "ep_infer": (lambda: ep_infer(model, params, ys[0], None,
+                                      EPConfig(backend="fused", ep_itts=3)), 2),
+        "separate": (lambda: separate([model, model], [params, params], ys[0] + ys[1],
+                                      engine="ep", backend="fused", ep_itts=10, n_samples=0), 9),
+        "ep_energy": (lambda: _grads(lambda p, dev: ep_energy(model, p, ys[0], None,
+                                                           EPConfig(ep_itts=3), device=dev),
+                                     params, cuda), 2),
+    }
+    BF = 3
+    modelB, pB, yB, maskB = _files(BF, 3, 2, torch.float32, cuda, steps=128)
+    for itts, want in ((1, 0), (2, BF)):
+        runs[f"fill_gaps_batch, {itts} sweeps"] = (
+            lambda itts=itts: fill_gaps_batch(modelB, pB, yB.T, maskB.T, engine="ep",
+                                              backend="fused", ep_itts=itts, n_samples=0), want)
+    for name, (run, want) in runs.items():
+        fk.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        assert fk.fused_resite.launches == want, name

@@ -7,7 +7,7 @@ overlapping; outputs are bit-identical with and without a profiler;
 ``launched`` counts as the wrappers' own counters did.  The card test
 (marker ``cuda``) traces a fused ``ep_infer`` on the card and holds every
 kernel to a launch event and a phase, and the ``nsgp.K<n>`` spans to the
-wrappers' counters.  This file imports no JAX; on the card:
+wrappers' counters (K9's inside ``nsgp.resite``).  This file imports no JAX; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
 """
@@ -180,7 +180,7 @@ def test_launched_counts_as_the_wrappers_did(tmp_path):
     # twins (CPU tensors) count nothing, as before
     names = {"fused_fwd": "K1", "fused_bwd": "K2", "fused_adf": "K3", "fused_adf_mb": "K4",
              "fused_ihgp_adf": "K5", "fused_ihgp_smooth": "K6", "fused_adf_vjp": "K7",
-             "fused_ihgp_adf_vjp": "K8"}
+             "fused_ihgp_adf_vjp": "K8", "fused_resite": "K9"}
     wrappers = fused_kalman.WRAPPERS + fused_ihgp.WRAPPERS
     assert sorted(fn.__name__ for fn in wrappers) == sorted(names)
     for fn in wrappers:
@@ -246,8 +246,9 @@ def test_traced_ep_infer_on_the_card(cuda, tmp_path):
         assert phase_of(launches[corr]), k["name"]
     wrappers = {"nsgp.K1": (fused_kalman.fused_fwd, "fwd_"), "nsgp.K2": (fused_kalman.fused_bwd,
                                                                         "bwd_"),
-                "nsgp.K3": (fused_kalman.fused_adf, "fused_adf_kernel")}
-    assert [fn.launches for fn, _ in wrappers.values()] == [2, 3, 1]
+                "nsgp.K3": (fused_kalman.fused_adf, "fused_adf_kernel"),
+                "nsgp.K9": (fused_kalman.fused_resite, "fused_resite_kernel")}
+    assert [fn.launches for fn, _ in wrappers.values()] == [2, 3, 1, 2]
     for name, (fn, stem) in wrappers.items():
         ks = [s for s in spans if s[0] == name]
         assert len(ks) == fn.launches, name
@@ -256,3 +257,7 @@ def test_traced_ep_infer_on_the_card(cuda, tmp_path):
         assert own, name
         for k in own:
             assert any(s[1] <= launches[k["args"]["correlation"]] <= s[2] for s in ks), name
+    # the re-site's kernel launches inside the re-site's phase
+    resites = [s for s in spans if s[0] == "nsgp.resite"]
+    for k9 in (s for s in spans if s[0] == "nsgp.K9"):
+        assert any(r[1] <= k9[1] and k9[2] <= r[2] for r in resites), k9
