@@ -339,6 +339,7 @@ def ep_infer(
                     ms=ms, Ps=Ps, maxdiff=maxdiff)
 
 
+@spanned("nsgp.ep_energy")
 def ep_energy(
     model: GTNMFModel,
     params: GTNMFParams,
@@ -366,35 +367,42 @@ def ep_energy(
     _check_config(config)
     chan = mesh_axis(config.channel_axis)
     full_fp32()
-    dev, params, y, mask = place_inputs(params, y, mask, device)
-    ssm = model.build_ssm(params)
-    T = y.shape[0]
-    C, bs = ssm.num_channels, ssm.block_size
-    mom_fn = _mom_point(model, params)
-    c0, c1 = chan.split(C) if chan else (0, C)
-    ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
+    with span("nsgp.assemble"):
+        dev, params, y, mask = place_inputs(params, y, mask, device)
+        ssm = model.build_ssm(params)
+        T = y.shape[0]
+        C, bs = ssm.num_channels, ssm.block_size
+        mom_fn = _mom_point(model, params)
+        c0, c1 = chan.split(C) if chan else (0, C)
+        ssm_c = _channel_slice(ssm, c0, c1, chan) if chan else ssm
 
     # Sweep 1: ADF, K3 forward and K7 backward (their twins on the CPU);
     # this is the lZ if ep_itts == 1.
-    ms1, Ps1, lZ, sites = fused_kalman.adf_filter_fused(model.moment_params(), ssm, params.W,
-                                                        params.lik, y, mask, config.damp(0))
+    with span("nsgp.sweep1"):
+        ms1, Ps1, lZ, sites = fused_kalman.adf_filter_fused(model.moment_params(), ssm,
+                                                            params.W, params.lik, y, mask,
+                                                            config.damp(0))
     fr = PackedTrajectory(ms1.reshape(T, -1), Ps1.reshape(T, -1))
     lZ_last = lZ[-1]  # forward-pass lZ at the final step (ref :413)
     last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
     last_only[-1] = True
     for itt in range(1, config.ep_itts):
-        if chan:
-            ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan))
-            mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
-            mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
-        else:
-            ms, Ps = kalman.rts_smoother(ssm, fr)
-            mu, var = kalman.observable_marginals(ssm, ms, Ps)
-        sites, lZ = _ep_resite(model, params, config, y, mask, mu, var, sites,
-                               config.damp(itt), exclude_last=True)
-        lZ = torch.cat([lZ[:-1], lZ_last[None]])
+        # the smoother closes the sweep before it, as in ep_infer
+        with span("nsgp.sweep1" if itt == 1 else "nsgp.pass"):
+            if chan:
+                ms, Ps = kalman.rts_smoother(ssm_c, _traj_channels(fr, c0, c1, bs, chan))
+                mu, var = kalman.observable_marginals(ssm_c, ms, Ps)
+                mu, var = gather(torch.stack([mu, var]), chan, 2, c0, C).unbind(0)
+            else:
+                ms, Ps = kalman.rts_smoother(ssm, fr)
+                mu, var = kalman.observable_marginals(ssm, ms, Ps)
+        with span("nsgp.resite"):
+            sites, lZ = _ep_resite(model, params, config, y, mask, mu, var, sites,
+                                   config.damp(itt), exclude_last=True)
+            lZ = torch.cat([lZ[:-1], lZ_last[None]])
         if itt < config.ep_itts - 1:
-            fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn, config.damp(itt),
-                                                  match_mask=last_only)
-            lZ_last = lZ_fwd[-1]
+            with span("nsgp.pass"):
+                fr, lZ_fwd, sites = kalman.adf_filter(ssm, y, mask, sites, mom_fn,
+                                                      config.damp(itt), match_mask=last_only)
+                lZ_last = lZ_fwd[-1]
     return -torch.sum(lZ)

@@ -21,6 +21,7 @@ import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.utils.device import resolve_device
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 GROUPS = ("lik", "sub_var", "sub_len", "omega", "mod_var", "mod_len", "W")
 
@@ -77,6 +78,7 @@ class FitResult(NamedTuple):
     final_energy: torch.Tensor
 
 
+@spanned("nsgp.fit_hyperparams")
 def fit_hyperparams(
     model: GTNMFModel,
     init_params: GTNMFParams,
@@ -112,10 +114,15 @@ def fit_hyperparams(
     def closure():
         opt.zero_grad()
         loss = energy(tf.to_params(u, init))
-        loss.backward()
+        with span("nsgp.backward"):
+            loss.backward()
         return loss
 
-    energies = torch.stack([opt.step(closure).detach() for _ in range(steps)])
+    def step():
+        with span("nsgp.step"):
+            return opt.step(closure).detach()
+
+    energies = torch.stack([step() for _ in range(steps)])
     with torch.no_grad():
         params = tf.to_params(u, init)
     return FitResult(params=params, energies=energies, final_energy=energies[-1])

@@ -1,13 +1,18 @@
 """The port's spans and kernel-launch counts, as ``torch.profiler`` sees them.
 
-A span names a phase of an entry point (``nsgp.assemble``, ``nsgp.sweep1``,
-``nsgp.resite``, ``nsgp.pass``, ``nsgp.readout``, ...) or one hand-written
-kernel's launch (``nsgp.K1`` .. ``nsgp.K9``).  While a profiler session
-records, a span is ``torch.profiler.record_function``: it lands in the same
-trace as the CUDA kernels, on the profiler's one clock, nested in the span
-that caused it.  While none records, a span costs one flag check and nothing
-else: no ``record_function``, no dispatcher call, no allocation, no device
-sync.  There is no setting; spans are on exactly while a profiler records.
+A span names an entry point (``nsgp.ep_infer``, ``nsgp.ep_energy``,
+``nsgp.fit_hyperparams``, ...), a phase of one (``nsgp.assemble``,
+``nsgp.sweep1``, ``nsgp.resite``, ``nsgp.pass``, ``nsgp.readout``; in
+training each optimiser step, ``nsgp.step``, and its ``loss.backward()``,
+``nsgp.backward``) or one hand-written kernel's launch (``nsgp.K1`` ..
+``nsgp.K9``).  A backward kernel's span (``nsgp.K7``) opens on the autograd
+engine's own thread, inside ``nsgp.backward`` in time.  While a profiler
+session records, a span is ``torch.profiler.record_function``: it lands in
+the same trace as the CUDA kernels, on the profiler's one clock, nested in
+the span that caused it.  While none records, a span costs one flag check
+and nothing else: no ``record_function``, no dispatcher call, no allocation,
+no device sync.  There is no setting; spans are on exactly while a profiler
+records.
 
 Span names are constant strings that start with ``nsgp.``; a span never reads
 a device value.

@@ -25,7 +25,8 @@ from torch.profiler import ProfilerActivity, profile
 from nsgp_tpu_torch.apps.missing_data import fill_gaps_batch
 from nsgp_tpu_torch.apps.source_sep import separate
 from nsgp_tpu_torch.inference.batched import ep_infer_batch
-from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
+from nsgp_tpu_torch.inference.ep import EPConfig, ep_energy, ep_infer
+from nsgp_tpu_torch.inference.learn import fit_hyperparams
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_ihgp, fused_kalman
 from nsgp_tpu_torch.utils import trace
@@ -79,7 +80,21 @@ def _calls():
         "fill_gaps_batch": (lambda: fill_gaps_batch(MODEL, pB, yB, mask, engine="ep",
                                                     n_samples=0, device="cpu", **kw),
                             "nsgp.fill_gaps_batch", app, two),
+        # the smoother closes the sweep before it; a later sweep's forward
+        # pass opens the next
+        "ep_energy": (lambda: ep_energy(MODEL, p[0], ys[0], None, EPConfig(ep_itts=3),
+                                        device="cpu"),
+                      "nsgp.ep_energy", ["nsgp.assemble", "nsgp.sweep1", "nsgp.sweep1",
+                                         "nsgp.resite", "nsgp.pass", "nsgp.pass", "nsgp.resite"],
+                      None),
+        "fit_hyperparams": (lambda: fit_hyperparams(MODEL, p[0], ys[0], specs=FIT_SPECS,
+                                                    steps=2, device="cpu"),
+                            "nsgp.fit_hyperparams", ["nsgp.step", "nsgp.step"], None),
     }
+
+
+FIT_SPECS = {"lik": "fixed", "sub_var": "fixed", "omega": "fixed", "mod_var": (1.0, 10.0),
+             "W": (0.0, 1.5)}
 
 
 def _flat(out):
@@ -123,7 +138,8 @@ def test_the_gate_is_the_profiler_flag():
     assert autograd_profiler._is_profiler_enabled is False
 
 
-@pytest.mark.parametrize("entry", ["ep_infer", "ep_infer_batch", "separate", "fill_gaps_batch"])
+@pytest.mark.parametrize("entry", ["ep_infer", "ep_infer_batch", "separate", "fill_gaps_batch",
+                                   "ep_energy"])
 def test_entry_point_spans_nest_in_call_order(entry, monkeypatch, tmp_path):
     """No profiler: no ``record_function`` is reached.  Under the profiler:
     one entry span whose phases come in call order, no sibling overlapping
@@ -155,6 +171,29 @@ def test_entry_point_spans_nest_in_call_order(entry, monkeypatch, tmp_path):
     checks = [s for s in spans if s[0] == "nsgp.check_stationary"]
     assert checks and all(any(p[0] in ("nsgp.sweep1", "nsgp.pass") and p[1] <= c[1]
                               and c[2] <= p[2] for p in spans) for c in checks)
+
+
+def test_fit_hyperparams_steps_nest(tmp_path):
+    """One entry span holding the steps; each optimiser step holds its
+    energy, then its backward pass; the energy at one sweep holds the
+    assembly and sweep 1.  The result is the same bits with and without a
+    profiler (``torch.optim`` opens spans of its own either way, so the
+    no-profiler check of the entry points does not apply)."""
+    call, top, expected, _ = _calls()["fit_hyperparams"]
+    plain = call()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = call()
+    for a, b in zip(_flat(plain), _flat(traced), strict=True):
+        assert torch.equal(a, b)
+    spans = _spans(_events(prof, tmp_path / "trace.json"))
+    (entry,) = [s for s in spans if s[0] == top]
+    assert [s[0] for s in _children(spans, entry)] == expected
+    steps = [s for s in spans if s[0] == "nsgp.step"]
+    assert len(steps) == 2
+    for st in steps:
+        kids = _children(spans, st)
+        assert [s[0] for s in kids] == ["nsgp.ep_energy", "nsgp.backward"]
+        assert [s[0] for s in _children(spans, kids[0])] == ["nsgp.assemble", "nsgp.sweep1"]
 
 
 class _Wrapper:
@@ -261,3 +300,47 @@ def test_traced_ep_infer_on_the_card(cuda, tmp_path):
     resites = [s for s in spans if s[0] == "nsgp.resite"]
     for k9 in (s for s in spans if s[0] == "nsgp.K9"):
         assert any(r[1] <= k9[1] and k9[2] <= r[2] for r in resites), k9
+
+
+@pytest.mark.cuda
+def test_traced_fit_hyperparams_on_the_card(cuda, tmp_path):
+    """``fit_hyperparams`` at T = 2048 under the profiler: its steps hold
+    their backward passes, which hold K7's launch spans (opened on the
+    autograd engine's thread, so nested by time), and its energies hold
+    sweep 1, which holds K3's; K3 and K7 launch once a step, each kernel
+    inside its own span."""
+    model = GTNMFModel(D=4, N=2, kernel1="exp", kernel2="matern52", variant="sq")
+    params = _params(4, 2, 0, torch.float32, cuda)
+    y = _signal(model, params, 2048, 5)
+    steps = 3
+    fit = lambda: fit_hyperparams(model, params, y, specs=FIT_SPECS, steps=steps, device=cuda)
+    fit()  # warm-up
+    torch.cuda.synchronize()
+    fused_kalman.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit()
+        torch.cuda.synchronize()
+    assert fused_kalman.fused_adf_vjp.launches == steps
+    assert fused_kalman.fused_adf.launches == steps
+    xs = _events(prof, tmp_path / "trace.json")
+    spans = _spans(xs)
+    within = lambda inner, outer: outer[1] <= inner[1] and inner[2] <= outer[2]
+    named = lambda n: [s for s in spans if s[0] == n]
+    (top,) = named("nsgp.fit_hyperparams")
+    chain = ("nsgp.step", "nsgp.backward", "nsgp.K7")
+    assert [len(named(n)) for n in chain] == [steps] * 3
+    assert all(within(s, top) for s in named("nsgp.step"))
+    for inner, outer in (("nsgp.backward", "nsgp.step"), ("nsgp.K7", "nsgp.backward"),
+                         ("nsgp.ep_energy", "nsgp.step"), ("nsgp.sweep1", "nsgp.ep_energy"),
+                         ("nsgp.K3", "nsgp.sweep1")):
+        for s in named(inner):
+            assert sum(within(s, o) for o in named(outer)) == 1, (inner, outer, s)
+    launches = {e["args"]["correlation"]: e["ts"] for e in xs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    for stem, name in (("fused_adf_vjp_kernel", "nsgp.K7"), ("fused_adf_kernel", "nsgp.K3")):
+        own = [e for e in xs if e.get("cat") == "kernel" and stem in e["name"]]
+        assert len(own) == steps, stem
+        for k in own:
+            t = launches[k["args"]["correlation"]]
+            assert any(s[1] <= t <= s[2] for s in named(name)), stem
