@@ -217,7 +217,8 @@ struct AdfProbe {
   bool on;
   long long cyc[ADF_PROBE_PHASES];
   long long last;
-  __device__ __forceinline__ explicit AdfProbe(bool on_) : on(on_), cyc{}, last(clock64()) {}
+  // clock64() in the body: the host pass keeps a constructor's initialisers
+  __device__ __forceinline__ explicit AdfProbe(bool on_) : on(on_), cyc{}, last(0) { last = clock64(); }
   __device__ __forceinline__ void mark(int i) {
     if (on) {
       const long long now = clock64();

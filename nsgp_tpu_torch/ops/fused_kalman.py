@@ -5,10 +5,10 @@ Port of ``nsgp_tpu/ops/pallas_kalman.py``, and of the transposed scan that
 Six kernels, each a whole pass over T (``csrc/fused_kalman.cuh``,
 ``csrc/fused_adf.cuh``, ``csrc/fused_adf_mb.cuh``, ``csrc/fused_adf_vjp.cuh``,
 ``csrc/fused_resite.cuh``; K3, K4, K7 and K9 share their per-point moment
-match, ``csrc/adf_step.cuh``).  K3, K4, K7 and K9 are
-one launch each; K1 and K2, whose steps compose, run as three blocked
-parallel-in-time launches over chunks of T (``chunk_length``), of which
-``fused_*_blocked_plain`` are the plain versions:
+match, ``csrc/adf_step.cuh``).  K3, K4 and K9 are one launch each; K7 is two,
+a pre-pass over all steps and the reverse walk; K1 and K2, whose steps
+compose, run as three blocked parallel-in-time launches over chunks of T
+(``chunk_length``), of which ``fused_*_blocked_plain`` are the plain versions:
 
     fused_fwd     (K1)  forward filter with fixed sites    <- _fwd_kernel
     fused_bwd     (K2)  RTS smoother with a Cholesky gain  <- _bwd_kernel
@@ -58,6 +58,11 @@ from nsgp_tpu_torch.utils.trace import launched, span
 
 MAX_BLOCK = 8  # block sizes instantiated in csrc/*.cu
 _LOG2PI = math.log(2.0 * math.pi)
+# K7's record holds a per-point part (every sigma point's forward values, a
+# step) only up to this many bytes; above it the reverse walk re-evaluates the
+# points.  At T = 16 000, 77 points and D = 16 (the speech model's training)
+# the part is 225 MB in float32.
+VJP_STASH_BYTES = 1 << 30
 _LAUNCH_CODES = {  # what csrc/adf_step.cuh:launch_adf_sweep returns besides CUDA errors
     -1: "unsupported block size or dtype",
     -2: "a width the thread mapping cannot take",
@@ -981,10 +986,16 @@ def fused_adf(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, *, damp, link, variant, z_f
 
 
 def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_lZ, g_tt, g_tn,
-                  *, damp, link, variant, z_floor):
+                  *, damp, link, variant, z_floor, _lib=None, _cycles=None):
     """K7: the reverse of K3's sweep (see ``fused_adf_vjp_plain``): K3's
     filtered ms, Ps and the cotangents of its outputs (None = zero) to those
-    of A, Q, Pinf, H, W and sn2.  One launch, one CTA."""
+    of A, Q, Pinf, H, W and sn2.  Two launches of one kernel: a pre-pass over
+    all steps that writes a record of each, then the reverse walk on one CTA.
+    The record holds every sigma point's forward values where the walk can
+    read them and they take at most ``VJP_STASH_BYTES``; such calls count in
+    ``fused_adf_vjp.stashed``.  ``_lib`` / ``_cycles`` are for
+    ``tools/probe_adf_cycles.py --kernel vjp``: a library built with the
+    clock probe and the int64 it fills."""
     outs = [x for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn) if x is not None]
     if _on_cpu(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, *outs):
         return fused_adf_vjp_plain(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps,
@@ -1006,7 +1017,7 @@ def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_l
                                                    ("g_Ps", g_Ps, (T, C, bs, bs)),
                                                    ("g_lZ", g_lZ, (T,)), ("g_tt", g_tt, (T, C)),
                                                    ("g_tn", g_tn, (T, C))) if x is not None})
-        lib = _build.library()
+        lib = _lib or _build.library()
         _check_adf("fused_adf_vjp", lib, C, D, N, S, link, variant)
         args = [x.contiguous() for x in (y, obs, A, Q, Pinf, H, W, xi, wn, sn2.reshape(1), ms, Ps)]
         cots = [None if x is None else x.contiguous() for x in (g_ms, g_Ps, g_lZ, g_tt, g_tn)]
@@ -1016,10 +1027,17 @@ def fused_adf_vjp(y, obs, A, Q, Pinf, H, W, xi, wn, sn2, ms, Ps, g_ms, g_Ps, g_l
         # the float64 sums of the parameters' cotangents, where shared memory cannot hold them
         scratch = torch.empty((lib.nsgp_adf_vjp_scratch(D, N, bs),), dtype=torch.float64,
                               device=dev)
+        item = torch.finfo(dt_).bits // 8
+        per_step = lib.nsgp_adf_vjp_record(D, N, S, bs, item, 0)
+        with_points = lib.nsgp_adf_vjp_record(D, N, S, bs, item, 1)
+        stash = with_points > 0 and T * (with_points - per_step) * item <= VJP_STASH_BYTES
+        record = torch.empty((T * (with_points if stash else per_step),), dtype=dt_, device=dev)
         log_floor = float(torch.log(torch.tensor(z_floor, dtype=dt_)))
         _launch("fused_adf_vjp", _by_dtype(lib, "nsgp_fused_adf_vjp", dt_), bs, *map(_ptr, args),
                 *map(_opt_ptr, cots), float(damp), log_floor, T, D, N, S, int(link == "exp"),
-                int(variant == "sq"), *map(_ptr, grads), _ptr(scratch), device=dev)
+                int(variant == "sq"), *map(_ptr, grads), _ptr(scratch), _ptr(record), int(stash),
+                _opt_ptr(_cycles), device=dev)
+        fused_adf_vjp.stashed += int(stash)
         return tuple(grads)
 
 
@@ -1173,6 +1191,7 @@ WRAPPERS = (fused_fwd, fused_bwd, fused_adf, fused_adf_mb, fused_adf_vjp, fused_
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    fused_adf_vjp.stashed = 0
 
 
 reset_launches()

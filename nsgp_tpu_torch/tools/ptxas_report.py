@@ -6,7 +6,8 @@ Prints the build's wall time, the card's name and power limit, and for each
 kernel at the given block sizes (default: 4, the matern32/matern52 models)
 and both dtypes its registers, spill bytes and stack frame, read from the
 build log (``-Xptxas -v``).  K9 (``fused_resite_kernel``) has no block size:
-its number is the sigma points a lane (2, or 4 above 512 points).  Needs
+its number is the sigma points a lane (2, or 4 above 512 points).  K7's two
+parts show as ``fused_adf_vjp_kernel.prepass`` and ``.walk``.  Needs
 nvcc; the numbers are the compiler's, not measurements of the card.
 """
 
@@ -23,7 +24,7 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _KERNEL = re.compile(r"((?:fused_adf_vjp|fused_adf_mb|fused_adf|fused_ihgp_adf_vjp|fused_ihgp_adf"
                      r"|fused_ihgp_smooth|fused_resite"
                      r"|(?:fwd|bwd)_(?:totals|carry|emit))_kernel)"
-                     r"I([fd])Li(\d+)E")
+                     r"I([fd])Li(\d+)E(?:Li(\d+)E)?")  # K7 has a third: its part
 
 
 def parse(log: str) -> list:
@@ -33,7 +34,10 @@ def parse(log: str) -> list:
         m = _ENTRY.search(line)
         if m:
             k = _KERNEL.search(m.group(1))
-            cur = [k.group(1), "f32" if k.group(2) == "f" else "f64", int(k.group(3)),
+            name = k and k.group(1)
+            if k and k.group(4) is not None:
+                name += ".prepass" if k.group(4) == "0" else ".walk"
+            cur = [name, "f32" if k.group(2) == "f" else "f64", int(k.group(3)),
                    None, None, None, None] if k else None
         elif cur and "bytes stack frame" in line:
             cur[4:7] = [int(x) for x in re.findall(r"(\d+) bytes", line)]

@@ -23,8 +23,9 @@ propagation.
 K7, the reverse of K3's sweep (the backward of ``FusedADF``), is held
 against its plain twin with seeded cotangents on all five outputs and on lZ
 alone, at bs 1-4, at 77, 193 and 3973 sigma points (one CTA walking them in
-rounds), with a gap and an outlier under the Z floor, for equal bits over
-two runs, and for its refusals.
+rounds), through its per-point record and, at 3973 points and under a byte
+budget of 0, without it, with a gap and an outlier under the Z floor, for
+equal bits over two runs, and for its refusals.
 IHGP's two sequential passes, K5 (the steady ADF sweep, K3's moment match
 under a table lookup) and K6 (the steady smoother), are held against their
 plain twins with a NaN gap, fixed non-zero sites on unobserved steps, sites
@@ -371,18 +372,25 @@ def _vjp_pair(model, params, y, mask, seed=7, only_lZ=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("k1,k2,N,link,variant,only_lZ", [
-    ("exp", "exp", 3, "exp", "sq", False),  # bs 1, S = 77
-    ("matern32", "exp", 2, "softplus", "amp", True),  # bs 2
-    ("matern32", "matern52", 3, "softplus", "sq", False),  # bs 3, S = 77
-    ("exp", "matern72", 4, "softplus", "sq", False),  # bs 4, S = 193: two rounds
+@pytest.mark.parametrize("k1,k2,N,link,variant,only_lZ,stash", [
+    ("exp", "exp", 3, "exp", "sq", False, True),  # bs 1, S = 77
+    ("matern32", "exp", 2, "softplus", "amp", True, True),  # bs 2
+    ("matern32", "matern52", 3, "softplus", "sq", False, True),  # bs 3, S = 77
+    ("exp", "matern72", 4, "softplus", "sq", False, True),  # bs 4, S = 193: two rounds
+    ("matern32", "matern52", 3, "softplus", "sq", False, False),  # no per-point record
 ])
-def test_adf_vjp_kernel_matches_plain(cuda, k1, k2, N, link, variant, only_lZ, dtype):
+def test_adf_vjp_kernel_matches_plain(cuda, monkeypatch, k1, k2, N, link, variant, only_lZ,
+                                      stash, dtype):
+    """Through the per-point record, and (a byte budget of 0) through the
+    walk that re-evaluates the points."""
+    if not stash:
+        monkeypatch.setattr(fk, "VJP_STASH_BYTES", 0)
     model, params, ssm, y, mask = _case(k1, k2, 3, N, dtype, cuda, link, variant)
     kern, plain = _vjp_pair(model, params, y, mask, only_lZ=only_lZ)
     fk.reset_launches()
     got = kern()
     assert fk.fused_adf_vjp.launches == 1
+    assert fk.fused_adf_vjp.stashed == int(stash)
     assert all(torch.equal(a, b) for a, b in zip(got, kern()))  # the same bits twice
     ref = plain()
     assert [g.shape for g in got] == [r.shape for r in ref]
@@ -391,20 +399,26 @@ def test_adf_vjp_kernel_matches_plain(cuda, k1, k2, N, link, variant, only_lZ, d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_adf_vjp_kernel_at_mixture_width(cuda, dtype):
+@pytest.mark.parametrize("dtype,k2", [(torch.float64, "matern52"), (torch.float32, "matern52"),
+                                      (torch.float64, "se")])
+def test_adf_vjp_kernel_at_mixture_width(cuda, dtype, k2):
     """D=48, N=9, 3973 sigma points: one CTA walks them in rounds (K3 takes
-    a cluster of eight there), a gap and an outlier under the Z floor.  In
+    a cluster of eight there), re-evaluating them (too many for the walk to
+    read a per-point record), a gap and an outlier under the Z floor.  With
+    SE modulators (block size 6) in float64 the walk's ring cannot hold the
+    steps' predictions at this width, and the walk derives them again.  In
     float32 the bar is the one chip_smoke.py holds every float32 kernel to
     (1e-3): 3973 points summed in another order than the twin's, whose
     weights at the outlier keep few digits (2.8e-4 measured on an H100)."""
-    model, pB, yB, maskB = _files(1, 48, 9, dtype, cuda, steps=12)
+    model, pB, yB, maskB = _files(1, 48, 9, dtype, cuda, k2=k2, steps=12)
     y = yB[:, 0].clone()
     y[6] = 50.0 * y.std()
     p = pB.select(0)
     assert fk.sigma_points(model.moment_params(), dtype, cuda)[0].shape[0] == 3973
     kern, plain = _vjp_pair(model, p, y, maskB[:, 0])
+    fk.reset_launches()
     got = kern()
+    assert (fk.fused_adf_vjp.launches, fk.fused_adf_vjp.stashed) == (1, 0)
     assert all(torch.equal(a, b) for a, b in zip(got, kern()))
     assert _rel(got, plain()) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
 
@@ -651,6 +665,7 @@ def test_ep_energy_gradient_card_matches_cpu(cuda, itts):
     assert {fn.__name__: fn.launches for fn in fk.WRAPPERS} == {
         "fused_fwd": 0, "fused_bwd": 0, "fused_adf": 1, "fused_adf_mb": 0, "fused_adf_vjp": 1,
         "fused_resite": itts - 1}
+    assert fk.fused_adf_vjp.stashed == 1
     assert _rel([x.cpu() for x in card], _grads(energy, params, "cpu")) <= TRAIN_TOL
 
 

@@ -307,8 +307,8 @@ def test_traced_fit_hyperparams_on_the_card(cuda, tmp_path):
     """``fit_hyperparams`` at T = 2048 under the profiler: its steps hold
     their backward passes, which hold K7's launch spans (opened on the
     autograd engine's thread, so nested by time), and its energies hold
-    sweep 1, which holds K3's; K3 and K7 launch once a step, each kernel
-    inside its own span."""
+    sweep 1, which holds K3's; K3 launches one kernel a step, K7 two (its
+    pre-pass and its reverse walk), each kernel inside its own span."""
     model = GTNMFModel(D=4, N=2, kernel1="exp", kernel2="matern52", variant="sq")
     params = _params(4, 2, 0, torch.float32, cuda)
     y = _signal(model, params, 2048, 5)
@@ -338,9 +338,14 @@ def test_traced_fit_hyperparams_on_the_card(cuda, tmp_path):
     launches = {e["args"]["correlation"]: e["ts"] for e in xs
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    for stem, name in (("fused_adf_vjp_kernel", "nsgp.K7"), ("fused_adf_kernel", "nsgp.K3")):
+    for stem, name, per_step in (("fused_adf_vjp_kernel", "nsgp.K7", 2),
+                                 ("fused_adf_kernel", "nsgp.K3", 1)):
         own = [e for e in xs if e.get("cat") == "kernel" and stem in e["name"]]
-        assert len(own) == steps, stem
+        assert len(own) == per_step * steps, stem
+        if per_step == 2:  # one pre-pass and one walk a step
+            parts = sorted(e["name"].split(stem)[1].split(">")[0].rsplit(",", 1)[1].strip()
+                           for e in own)
+            assert parts == ["0"] * steps + ["1"] * steps, parts
         for k in own:
             t = launches[k["args"]["correlation"]]
             assert any(s[1] <= t <= s[2] for s in named(name)), stem
