@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from nsgp_tpu_torch.ops import fused_kalman as fk
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, K = 397, 11
 

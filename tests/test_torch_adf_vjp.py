@@ -18,6 +18,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops import kalman
 from nsgp_tpu_torch.ops.moments import sigma_points
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N = 3, 2
 DIFF = ("A", "Q", "Pinf", "H", "W", "sn2")

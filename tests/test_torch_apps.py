@@ -36,6 +36,7 @@ from nsgp_tpu_torch.inference import registry
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, stack_params
 from nsgp_tpu_torch.utils import metrics as tmetrics
 from nsgp_tpu_torch.utils.device import resolve_device
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAINED = os.path.join(ROOT, "results", "trained", "music", "trained_piano_matern32.npz")

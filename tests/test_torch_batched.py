@@ -35,6 +35,7 @@ from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, stack_params
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops import ssm as tssm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF, D, N, T = 3, 4, 2, 128

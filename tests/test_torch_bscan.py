@@ -33,6 +33,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel
 from nsgp_tpu_torch.ops import bscan, pscan
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops.kalman import Sites
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAX = os.path.join(ROOT, "results", "trained", "music", "trained_sax_matern32.npz")

@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 from nsgp_tpu_torch.ops import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

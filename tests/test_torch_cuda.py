@@ -54,6 +54,7 @@ from nsgp_tpu_torch.inference.ep import EPConfig, ep_infer
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops.kalman import Sites
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 T = 64

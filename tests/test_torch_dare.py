@@ -30,6 +30,7 @@ from nsgp_tpu.ops import dare as jdare
 from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.ops import dare as tdare
 from nsgp_tpu_torch.ops.ssm import BlockSSM
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _stable_systems(n, bs, seed):

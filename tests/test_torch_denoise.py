@@ -35,6 +35,7 @@ from nsgp_tpu_torch.utils import audio as taudio
 from nsgp_tpu_torch.utils import metrics as tmetrics
 from nsgp_tpu_torch.utils import speech_quality as tsq
 from nsgp_tpu_torch.utils import stoi as tstoi
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 T, PAD, D, N, FS = 1000, 24, 4, 2, 16000

@@ -29,6 +29,7 @@ from nsgp_tpu_torch.inference import ep as tep
 from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import cubature
 from nsgp_tpu_torch.ops import moments as tm
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 96
 D, N = 3, 2

@@ -27,6 +27,7 @@ from nsgp_tpu.models.gtnmf import sample_prior as j_sample_prior
 from nsgp_tpu_torch.convert import params_from_numpy
 from nsgp_tpu_torch.inference import ep as tep
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "ep_toy.npz")
@@ -107,35 +108,39 @@ def test_fused_backend_matches_jax_pallas(case):
     assert np.all(np.isfinite(_np(r_t.Eft))) and np.all(_np(r_t.Varft) > 0)
 
 
-@pytest.mark.parametrize("field,value", [("parallel", True), ("chunk", 256),
-                                         ("jitter", 1e-6), ("channel_axis", "c"),
+@pytest.mark.parametrize("field,value", [("parallel", True), ("jitter", 1e-6)])
+def test_ported_config_fields_match_jax(field, value):
+    """``parallel`` with ``chunk=0`` (the one-level log-depth scans) and
+    ``jitter`` run, on ``backend="seq"``, against JAX's ``ep_infer`` at rtol
+    1e-8 (the jitter on the one-level path, the only one where JAX's acts;
+    the T=32 signal has a NaN gap)."""
+    jm, jp = _toy()
+    model, params = _port(jm, jp)
+    kw = {field: value, "parallel": True, "chunk": 0, "ep_itts": 2}
+    y = _signal(jm, jp, "nan_gap")[50:82]
+    r_j = jep.ep_infer(jm, jp, jnp.asarray(y), None, jep.EPConfig(unroll=1, **kw))
+    r_t = tep.ep_infer(model, params, torch.tensor(y), None, tep.EPConfig(**kw),
+                       device="cpu")
+    for f in ("Eft", "Varft", "lZ", "nlZ", "ms", "Ps"):
+        b = np.asarray(getattr(r_j, f))
+        np.testing.assert_allclose(_np(getattr(r_t, f)), b, rtol=1e-8,
+                                   atol=1e-8 * np.abs(b).max(), err_msg=f)
+    for a, b in zip(r_t.sites, r_j.sites):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-8,
+                                   atol=1e-8 * np.abs(np.asarray(b)).max())
+
+
+@pytest.mark.parametrize("field,value", [("chunk", 256), ("channel_axis", "c"),
                                          ("time_axis", "t")])
 def test_unported_config_fields_raise(field, value):
-    """The fields not ported raise.  ``parallel`` with ``chunk=0`` (the
-    one-level log-depth scans) and ``jitter`` are ported: those two cases
-    run, on ``backend="seq"``, against JAX's ``ep_infer`` at rtol 1e-8 (the
-    jitter on the one-level path, the only one where JAX's acts; the T=32
-    signal has a NaN gap).  ``channel_axis`` and ``time_axis`` are ported
-    (``tests/test_torch_mesh.py``): set without an ambient mesh they raise
-    ``RuntimeError``, as JAX's sharding constraint does (``time_axis`` on the
-    blocked path, the one that reads it)."""
+    """A field set without the option that reads it raises: ``chunk`` without
+    ``parallel`` raises ``NotImplementedError``.  ``channel_axis`` and
+    ``time_axis`` are ported (``tests/test_torch_mesh.py``): set without an
+    ambient mesh they raise ``RuntimeError``, as JAX's sharding constraint
+    does (``time_axis`` on the blocked path, the one that reads it)."""
     jm, jp = _toy()
     model, params = _port(jm, jp)
     kw = {field: value}
-    if field in ("parallel", "jitter"):
-        kw.update(parallel=True, chunk=0, ep_itts=2)
-        y = _signal(jm, jp, "nan_gap")[50:82]
-        r_j = jep.ep_infer(jm, jp, jnp.asarray(y), None, jep.EPConfig(unroll=1, **kw))
-        r_t = tep.ep_infer(model, params, torch.tensor(y), None, tep.EPConfig(**kw),
-                           device="cpu")
-        for f in ("Eft", "Varft", "lZ", "nlZ", "ms", "Ps"):
-            b = np.asarray(getattr(r_j, f))
-            np.testing.assert_allclose(_np(getattr(r_t, f)), b, rtol=1e-8,
-                                       atol=1e-8 * np.abs(b).max(), err_msg=f)
-        for a, b in zip(r_t.sites, r_j.sites):
-            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-8,
-                                       atol=1e-8 * np.abs(np.asarray(b)).max())
-        return
     y = torch.zeros(8, dtype=torch.float64)
     if field in ("channel_axis", "time_axis"):
         if field == "time_axis":

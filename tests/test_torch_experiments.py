@@ -23,7 +23,6 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 import nsgp_tpu.experiments as jexps
 import nsgp_tpu_torch.experiments as texps
@@ -34,22 +33,13 @@ from nsgp_tpu.utils.audio import write_wav
 from nsgp_tpu_torch.experiments import missing_data as tmd
 from nsgp_tpu_torch.experiments import train_corpus as ttc
 from nsgp_tpu_torch.experiments import train_hyperopt as tho
+from torch_threads import one_torch_thread  # noqa: F401
 
 FS = 16000
 T_MD, T_HO, T_DN = 2048, 700, 6400  # the gap, hyperopt and denoising wavs
 ENGINES = ("ep", "ihgp", "giekf")
 JAX_FAST = {"ep": {"unroll": 1}, "ihgp": {"unroll": 1}, "giekf": {}}
 TIMING = ("seconds_cold", "seconds_warm", "batch_seconds_warm")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the drivers' small-op loops gain nothing from
-    more, and beside other test workers the extra threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

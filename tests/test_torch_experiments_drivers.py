@@ -25,7 +25,6 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 import nsgp_tpu_torch.experiments as texps
 from nsgp_tpu.experiments import missing_data as jmd
@@ -36,20 +35,11 @@ from nsgp_tpu.utils.audio import write_wav
 from nsgp_tpu_torch.experiments import missing_data as tmd
 from nsgp_tpu_torch.experiments import protocol as tproto
 from nsgp_tpu_torch.experiments import synthetic as tsyn
+from torch_threads import one_torch_thread  # noqa: F401
 
 FS = 16000
 ENGINES = ("ep", "ihgp", "giekf")
 JAX_FAST = {"ep": {"unroll": 1}, "ihgp": {"unroll": 1}, "giekf": {}}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the drivers' small-op loops gain nothing from
-    more, and beside other test workers the extra threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -42,18 +42,9 @@ from nsgp_tpu_torch.convert import load_trained
 from nsgp_tpu_torch.experiments import figures, scaling_dryrun, speech_fit_probe
 from nsgp_tpu_torch.models.gtnmf import sample_prior
 from nsgp_tpu_torch.utils.audio import write_wav
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the drivers' small-op loops gain nothing from
-    more, and beside other test workers the extra threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -11,6 +11,7 @@ import torch
 from benchmark import inputs
 from benchmark import reference_train as RT
 from benchmark.manifest import Manifest
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N, T = 4, 2, 128
 SPECS = {"lik": "fixed", "sub_var": "fixed", "sub_len": [100.0, 2000.0], "omega": "fixed",

@@ -29,6 +29,7 @@ from nsgp_tpu.models.gtnmf import sample_prior as j_sample_prior
 from nsgp_tpu_torch.convert import params_from_numpy
 from nsgp_tpu_torch.inference import giekf as tg
 from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 100
 

@@ -28,19 +28,10 @@ from nsgp_tpu_torch.convert import params_from_numpy
 from nsgp_tpu_torch.inference import batched as tbt
 from nsgp_tpu_torch.inference import giekf as tg
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF, D, N, T = 3, 4, 2, 160
 CFG = dict(g_iter=3, l_iter=2)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the (m, m) steps gain nothing from more, and
-    beside other test workers the extra threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

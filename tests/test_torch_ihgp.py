@@ -41,6 +41,7 @@ from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.inference import learn as tlearn
 from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams, stack_params
 from nsgp_tpu_torch.ops.pscan import associative_scan
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 100
 CHUNK = 32  # 100 = 3 * 32 + 4: a ragged last chunk

@@ -31,6 +31,7 @@ from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.inference import learn as tlearn
 from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams
 from nsgp_tpu_torch.ops import fused_ihgp as fih
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N = 3, 2
 DIFF = ("A", "H", "first", "tab", "W", "sn2")

@@ -37,6 +37,7 @@ from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
 from nsgp_tpu_torch.ops import fused_ihgp as fih
 from nsgp_tpu_torch.ops.kalman import Sites
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 60
 DAMP = 0.1

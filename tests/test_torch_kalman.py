@@ -27,6 +27,7 @@ from nsgp_tpu_torch.models.gtnmf import GTNMFModel
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops import kalman as tk
 from nsgp_tpu_torch.ops import moments as tmom
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N, T, BLOCK = 3, 2, 96, 32
 PALLAS = dict(rtol=1e-7, atol=1e-9)

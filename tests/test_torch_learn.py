@@ -35,6 +35,7 @@ from nsgp_tpu_torch.inference import ihgp as tih
 from nsgp_tpu_torch.inference import learn as tlearn
 from nsgp_tpu_torch.inference import registry
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, N, T = 3, 2, 64
 # the hmc_hypers experiment's boxes, with W on the log scale

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import torch_mesh_worker as worker
+from torch_threads import one_torch_thread  # noqa: F401
 from nsgp_tpu.inference import ep as jep
 from nsgp_tpu.inference import learn as jlearn
 from nsgp_tpu.models.gtnmf import GTNMFModel as JModel
@@ -132,17 +133,12 @@ def _port_refs(sig):
 def worlds(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("mesh_worlds"))
     sig, four, three = _cases()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            spawned = [pool.submit(pmesh.spawn_world, worker.run_cases, n, "gloo", (cases,), root)
-                       for n, cases in ((4, four), (3, three))]
-            port = pool.submit(_port_refs, sig)
-            refs = dict(jax=_jax_refs(sig), port=port.result())
-            ranks4, ranks3 = (f.result() for f in spawned)
-    finally:
-        torch.set_num_threads(n)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        spawned = [pool.submit(pmesh.spawn_world, worker.run_cases, n, "gloo", (cases,), root)
+                   for n, cases in ((4, four), (3, three))]
+        port = pool.submit(_port_refs, sig)
+        refs = dict(jax=_jax_refs(sig), port=port.result())
+        ranks4, ranks3 = (f.result() for f in spawned)
     return dict(refs, ranks4=ranks4, ranks3=ranks3)
 
 

@@ -25,6 +25,7 @@ from nsgp_tpu_torch import convert
 from nsgp_tpu_torch.apps import source_sep as tsep
 from nsgp_tpu_torch.models import mixture as tmix
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 128
 

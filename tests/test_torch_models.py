@@ -23,6 +23,7 @@ from nsgp_tpu_torch.models import gtnmf as tg
 from nsgp_tpu_torch.ops import cubature as tcub
 from nsgp_tpu_torch.ops import kernels as tker
 from nsgp_tpu_torch.ops import ssm as tssm
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-12
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,7 @@ import torch
 
 from nsgp_tpu.ops import moments as jm
 from nsgp_tpu_torch.ops import moments as tm
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-10, 1e-12
 D, N = 3, 2

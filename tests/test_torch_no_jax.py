@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -134,7 +135,10 @@ sys.exit(1 if bad else 0)
 
 
 def _run(args, cwd):
+    """Run Python in a child with no PYTHONPATH and, like the fixture in this
+    process, one intra-op thread."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=300)
 

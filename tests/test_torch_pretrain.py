@@ -48,6 +48,7 @@ from nsgp_tpu_torch.pretrain import nmf as tnmf
 from nsgp_tpu_torch.pretrain import pipeline as tpipe
 from nsgp_tpu_torch.pretrain import segp as tsegp
 from nsgp_tpu_torch.pretrain import spectral as tspec
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 KERNELS = ("exp", "matern32", "matern52")

@@ -20,6 +20,7 @@ from nsgp_tpu_torch.models.gtnmf import PARAM_NAMES, GTNMFModel, GTNMFParams, sa
 from nsgp_tpu_torch.ops import fused_kalman as fk
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import moments_chunked
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 40
 

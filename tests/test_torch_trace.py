@@ -30,6 +30,7 @@ from nsgp_tpu_torch.inference.learn import fit_hyperparams
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_ihgp, fused_kalman
 from nsgp_tpu_torch.utils import trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 32
 PHASES = ("nsgp.assemble", "nsgp.sweep1", "nsgp.resite", "nsgp.pass", "nsgp.readout")
