@@ -162,9 +162,8 @@ def _ep_resite(
     ``fused_resite_plain`` on CPU tensors (``moments_chunked`` in chunks of
     ``cfg.moment_chunk`` sites).
     """
-    if exclude_last:
-        mask = mask.clone()
-        mask[-1] = False
+    if exclude_last:  # made on the device: a host write would sync
+        mask = torch.cat([mask[:-1], torch.zeros_like(mask[-1:])])
     ttau, tnu, lZ = fused_kalman.fused_resite(
         model.moment_params(), y, mask, mu, var, sites.ttau, sites.tnu, params.W, params.lik,
         frac=cfg.ep_fraction, damp=damp, chunk=cfg.moment_chunk)
@@ -384,8 +383,7 @@ def ep_energy(
                                                             config.damp(0))
     fr = PackedTrajectory(ms1.reshape(T, -1), Ps1.reshape(T, -1))
     lZ_last = lZ[-1]  # forward-pass lZ at the final step (ref :413)
-    last_only = torch.zeros((T,), dtype=torch.bool, device=dev)
-    last_only[-1] = True
+    last_only = torch.arange(T, device=dev) == T - 1  # no host write, which would sync
     for itt in range(1, config.ep_itts):
         # the smoother closes the sweep before it, as in ep_infer
         with span("nsgp.sweep1" if itt == 1 else "nsgp.pass"):

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams
+from nsgp_tpu_torch.ops.fused_kalman import deferred_stationarity
 from nsgp_tpu_torch.utils.device import resolve_device
 from nsgp_tpu_torch.utils.trace import span, spanned
 
@@ -98,7 +99,9 @@ def fit_hyperparams(
     unconstrained leaves live on ``device`` with ``requires_grad``; each step
     calls ``optimizer.step`` with a closure (so L-BFGS works too).  As in the
     JAX package's scan, ``energies[i]`` is the loss before update i and
-    ``final_energy`` is ``energies[-1]``.
+    ``final_energy`` is ``energies[-1]``.  The steps' stationarity checks
+    (``fused_kalman.check_stationary``) are deferred to one read when the
+    steps end, which raises the check's ValueError if any step failed it.
     """
     dev = resolve_device(device)
     init = init_params.on(dev)
@@ -122,7 +125,8 @@ def fit_hyperparams(
         with span("nsgp.step"):
             return opt.step(closure).detach()
 
-    energies = torch.stack([step() for _ in range(steps)])
+    with deferred_stationarity():
+        energies = torch.stack([step() for _ in range(steps)])
     with torch.no_grad():
         params = tf.to_params(u, init)
     return FitResult(params=params, energies=energies, final_energy=energies[-1])

@@ -47,13 +47,15 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 
 from nsgp_tpu_torch.ops.kalman import Sites
 from nsgp_tpu_torch.ops.moments import (LINKS, MomentParams, _log_floor, moments_chunked,
                                          sigma_points)
-from nsgp_tpu_torch.ops.ssm import BlockSSM
+from nsgp_tpu_torch.ops.ssm import BlockSSM, expm_cover
 from nsgp_tpu_torch.utils.trace import launched, span
 
 MAX_BLOCK = 8  # block sizes instantiated in csrc/*.cu
@@ -1192,9 +1194,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     fused_adf_vjp.stashed = 0
-
-
-reset_launches()
+    check_stationary.deferred = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1207,19 +1207,62 @@ def _flat(ms, Ps):
     return ms.reshape(T, -1), Ps.reshape(T, -1)
 
 
+_deferral = threading.local()  # .gaps: the open scope's (gap, tolerance, dtype), else None
+
+
 def check_stationary(ssm: BlockSSM) -> None:
     """Raise unless Q = Pinf - A Pinf A' (any leading axes): the kernels
     start from (0, Pinf) and rely on one prediction leaving it unchanged.
-    Tolerance relative to max |Pinf|: 1e-5 in float32, 1e-10 in float64."""
+    Tolerance relative to max |Pinf|: 1e-5 in float32, 1e-10 in float64.
+    Inside ``deferred_stationarity`` the gap stays on the device, queued
+    (``check_stationary.deferred`` counts it), and the scope reads it."""
     with torch.no_grad(), span("nsgp.check_stationary"):
         gap = ssm.Q - (ssm.Pinf - ssm.A @ ssm.Pinf @ ssm.A.transpose(-1, -2))
-        rel = float(gap.abs().max() / ssm.Pinf.abs().max())
+        rel = gap.abs().max() / ssm.Pinf.abs().max()
+        queue = getattr(_deferral, "gaps", None)
+        if queue is None:
+            rel = float(rel)
     tol = 1e-10 if ssm.A.dtype == torch.float64 else 1e-5
-    if not rel <= tol:
-        raise ValueError(
-            f"the fused passes need the stationary discretization Q = Pinf - A Pinf A' "
-            f"(max gap {rel:.3e} of max|Pinf|, tolerance {tol:g}); build the model with "
-            f"discretization='stationary'")
+    if queue is None:
+        _refuse_nonstationary(rel, tol, ssm.A.dtype)
+    else:
+        queue.append((rel, tol, ssm.A.dtype))
+        check_stationary.deferred += 1
+
+
+def _refuse_nonstationary(rel: float, tol: float, dtype) -> None:
+    if rel <= tol:
+        return
+    why = "build the model with discretization='stationary'"
+    if math.isnan(rel):
+        why = (f"A, Q or Pinf is not finite, as where ||F dt||_1 exceeds the cover of "
+               f"ops.ssm.expm ({expm_cover(dtype):g} in {dtype}), which writes NaN there")
+    raise ValueError(f"the fused passes need the stationary discretization Q = Pinf - A Pinf A' "
+                     f"(max gap {rel:.3e} of max|Pinf|, tolerance {tol:g}); {why}")
+
+
+@contextmanager
+def deferred_stationarity():
+    """A scope in which ``check_stationary`` reads nothing back to the host:
+    each check queues its gap on the device, and when the scope closes one
+    read raises ``check_stationary``'s ValueError for the first check that
+    failed.  A scope opened inside another defers to the outer one; a scope
+    left by an exception reads nothing."""
+    if getattr(_deferral, "gaps", None) is not None:
+        yield
+        return
+    _deferral.gaps = queue = []
+    try:
+        yield
+    finally:
+        _deferral.gaps = None
+    if queue:
+        rels = torch.stack([rel.to(torch.float64) for rel, _, _ in queue]).tolist()
+        for rel, (_, tol, dtype) in zip(rels, queue):
+            _refuse_nonstationary(rel, tol, dtype)
+
+
+reset_launches()
 
 
 def smoother_fused(ssm: BlockSSM, ms, Ps):

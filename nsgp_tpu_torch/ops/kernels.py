@@ -39,8 +39,13 @@ def _scalars(sigma2, ell, dtype):
     return sigma2, ell
 
 
-def _const(rows, like):
-    return torch.tensor(rows, dtype=like.dtype, device=like.device)
+@functools.lru_cache(maxsize=32)
+def _companion_L_H(n: int, dtype, device):
+    """A companion form's L = e_n (n, 1) and H = e_1 (1, n), made on the
+    device (a host copy would sync) once per size, dtype and device and
+    shared, so read-only."""
+    eye = torch.eye(n, dtype=dtype, device=device)
+    return eye[:, -1:].contiguous(), eye[:1].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -67,9 +72,8 @@ def matern32_to_ss(sigma2, ell, dtype=None) -> StateSpace:
     z = torch.zeros_like(sigma2)
     one = torch.ones_like(sigma2)
     F = torch.stack([torch.stack([z, one]), torch.stack([-(lam**2), -2.0 * lam])])
-    L = _const([[0.0], [1.0]], sigma2)
+    L, H = _companion_L_H(2, sigma2.dtype, sigma2.device)
     Qc = (12.0 * sqrt3 / ell**3 * sigma2).reshape(1, 1)
-    H = _const([[1.0, 0.0]], sigma2)
     Pinf = torch.diag(torch.stack([sigma2, 3.0 * sigma2 / ell**2]))
     return StateSpace(F, L, Qc, H, Pinf)
 
@@ -87,10 +91,9 @@ def matern52_to_ss(sigma2, ell, dtype=None) -> StateSpace:
             torch.stack([-(lam**3), -3.0 * lam**2, -3.0 * lam]),
         ]
     )
-    L = _const([[0.0], [0.0], [1.0]], sigma2)
+    L, H = _companion_L_H(3, sigma2.dtype, sigma2.device)
     # Qc = sigma2 * 400 * sqrt(5) / 3 / ell^5
     Qc = (sigma2 * 400.0 * math.sqrt(5.0) / 3.0 / ell**5).reshape(1, 1)
-    H = _const([[1.0, 0.0, 0.0]], sigma2)
     kappa = 5.0 / 3.0 * sigma2 / ell**2
     Pinf = torch.stack(
         [
@@ -116,9 +119,8 @@ def matern72_to_ss(sigma2, ell, dtype=None) -> StateSpace:
             torch.stack([-(lam**4), -4.0 * lam**3, -6.0 * lam**2, -4.0 * lam]),
         ]
     )
-    L = _const([[0.0], [0.0], [0.0], [1.0]], sigma2)
+    L, H = _companion_L_H(4, sigma2.dtype, sigma2.device)
     Qc = (sigma2 * 10976.0 * math.sqrt(7.0) / 5.0 / ell**7).reshape(1, 1)
-    H = _const([[1.0, 0.0, 0.0, 0.0]], sigma2)
     kappa = 7.0 / 5.0 * sigma2 / ell**2
     kappa2 = 9.8 * sigma2 / ell**4
     Pinf = torch.stack(
@@ -156,6 +158,13 @@ def _se_canonical_coeffs(order: int) -> np.ndarray:
     return a_monic[1:][::-1].copy()  # a[k] multiplies x^k, k=0..order-1
 
 
+@functools.lru_cache(maxsize=16)
+def _se_unit_coeffs(order: int, dtype, device) -> torch.Tensor:
+    """``_se_canonical_coeffs`` on the device, made once per order, dtype and
+    device and shared, so read-only."""
+    return torch.as_tensor(_se_canonical_coeffs(order), dtype=dtype, device=device)
+
+
 def se_to_ss(sigma2, ell, order: int = 6, dtype=None) -> StateSpace:
     """Squared-exponential kernel, order-``order`` Taylor approximation.
 
@@ -164,7 +173,7 @@ def se_to_ss(sigma2, ell, order: int = 6, dtype=None) -> StateSpace:
     """
     sigma2, ell = _scalars(sigma2, ell, dtype)
     dt_, dev = sigma2.dtype, sigma2.device
-    a_unit = torch.as_tensor(_se_canonical_coeffs(order), dtype=dt_, device=dev)
+    a_unit = _se_unit_coeffs(order, dt_, dev)
     N = order
     fn = math.factorial(N)
     kappa = 1.0 / (2.0 * ell**2)

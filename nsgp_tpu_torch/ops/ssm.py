@@ -16,6 +16,7 @@ H=0 on padded dims), so padded state/covariance entries remain exactly 0.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -60,6 +61,75 @@ def _pad_row(h: torch.Tensor, bs: int) -> torch.Tensor:
     return Fn.pad(h, (0, bs - h.shape[0]))
 
 
+# The degree-18 Taylor polynomial of Bader, Blanes & Casas, "Computing the
+# matrix exponential with an optimized Taylor polynomial approximation"
+# (Mathematics 7, 2019), with the coefficients and norm bounds that
+# torch.linalg.matrix_exp takes: rows B1..B5 over (I, A, A^2, A^3, A^6), and
+# the 1-norm up to which the polynomial needs no scaling, by dtype.
+_T18 = (
+    (0.0, -1.00365581030144618291e-01, -8.02924648241156932449e-03,
+     -8.92138498045424779339e-04, 0.0),
+    (0.0, 3.97849749499645077844e-01, 1.36783778460411719922e+00,
+     4.98289622525382669416e-01, -6.37898194594723280150e-04),
+    (-1.09676396052962061844e+01, 1.68015813878906206114e+00, 5.71779846478865511061e-02,
+     -6.98210122488052056106e-03, 3.34975017086070470649e-05),
+    (-9.04316832390810593223e-02, -6.76404519071381882256e-02, 6.75961301770459654925e-02,
+     2.95552570429315521194e-02, -1.39180257516060693404e-05),
+    (0.0, 0.0, -9.23364619367118555360e-02, -1.69364939002081722752e-02,
+     -1.40086798182036094347e-05),
+)
+_T18_THETA = {torch.float64: 1.090863719290036e+00, torch.float32: 3.010066362817634e+00}
+EXPM_SQUARINGS = 7  # the cover: ||M||_1 <= theta * 2**7 (139.6 in float64)
+
+
+def expm_cover(dtype) -> float:
+    """The largest 1-norm ``expm`` takes in ``dtype``."""
+    return _T18_THETA[dtype] * 2.0**EXPM_SQUARINGS
+
+
+@functools.lru_cache(maxsize=32)
+def _expm_consts(n: int, dtype, device):
+    """``expm``'s constants, made once per size, dtype and device and shared,
+    so read-only: the polynomial's (5, 5, 1, 1, 1) coefficients, the norm bounds
+    theta * 2**k for k = 0..EXPM_SQUARINGS, and the (n, n) identity."""
+    bounds = [_T18_THETA[dtype] * 2.0**k for k in range(EXPM_SQUARINGS + 1)]
+    return (torch.tensor(_T18, dtype=dtype, device=device)[..., None, None, None],
+            torch.tensor(bounds, dtype=dtype, device=device),
+            torch.eye(n, dtype=dtype, device=device))
+
+
+def expm(M: torch.Tensor) -> torch.Tensor:
+    """exp(M) over any leading axes, float32 or float64, with no
+    host-device synchronisation: the same launches whatever M holds.
+
+    The algorithm of ``torch.linalg.matrix_exp`` on a batch: each matrix is
+    scaled by 2**-s, s = ceil(log2(||M||_1 / theta)) clamped at 0, the
+    degree-18 polynomial is evaluated, and the result squared s times.  Here
+    s stays on the device: the scaling and all EXPM_SQUARINGS squarings run
+    for every matrix, a squaring past a matrix's own s multiplying by the
+    identity (exact).  A matrix beyond the cover (``expm_cover``) comes out
+    NaN, never a wrong value; so does one that holds NaN.  The gradient is
+    autograd's, through the products.
+    """
+    n = M.shape[-1]
+    if n <= 1:
+        return M.exp()
+    coef, bounds, eye = _expm_consts(n, M.dtype, M.device)
+    X = M.reshape(-1, n, n)
+    over = X.detach().abs().sum(-2).amax(-1)[:, None] > bounds  # (B, squarings + 1)
+    X = X * torch.pow(0.5, over[:, :-1].sum(-1))[:, None, None]
+    A2 = X @ X
+    A3 = A2 @ X
+    A6 = A3 @ A3
+    powers = torch.stack([eye.expand_as(X), X, A2, A3, A6])
+    B1, B2, B3, B4, B5 = (coef * powers).sum(1)  # as torch sums: term by term
+    A9 = torch.baddbmm(B4, B1, B5)
+    X = torch.baddbmm(B2, B3 + A9, A9)
+    for k in range(EXPM_SQUARINGS):
+        X = X @ torch.where(over[:, k, None, None], X, eye)
+    return torch.where(over[:, -1, None, None], float("nan"), X).reshape(M.shape)
+
+
 def subband_block(sigma2, ell, omega, kernel: str, dtype=None):
     """Quasi-periodic subband channel: kernel x cosine product.
 
@@ -78,7 +148,7 @@ def subband_block(sigma2, ell, omega, kernel: str, dtype=None):
     rot = torch.stack([torch.stack([z, -omega]), torch.stack([omega, z])])
     F = torch.kron(ss.F, I2) + torch.kron(torch.eye(tau1, dtype=dt_, device=dev), rot)
     LQcLT = torch.kron(ss.L @ ss.Qc @ ss.L.T, I2)
-    H = torch.kron(ss.H[0], torch.tensor([1.0, 0.0], dtype=dt_, device=dev))
+    H = Fn.pad(ss.H[0][:, None], (0, 1)).reshape(-1)  # kron(H1, [1, 0])
     Pinf = torch.kron(ss.Pinf, I2)
     return F, LQcLT, H, Pinf
 
@@ -97,15 +167,17 @@ def lti_disc_matrix_fraction(F: torch.Tensor, LQcLT: torch.Tensor, dt: float = 1
     [[F, LQcLT], [0, -F']].  Batched over any leading axes.
     """
     n = F.shape[-1]
-    A = torch.linalg.matrix_exp(F * dt)
+    A = expm(F * dt)
     Phi = torch.cat(
         [torch.cat([F, LQcLT], -1),
          torch.cat([torch.zeros_like(F), -F.transpose(-1, -2)], -1)], -2
     )
-    EPhi = torch.linalg.matrix_exp(Phi * dt)
+    EPhi = expm(Phi * dt)
     AB_top = EPhi[..., :n, n:]
     AB_bot = EPhi[..., n:, n:]
-    Q = torch.linalg.solve(AB_bot.transpose(-1, -2), AB_top.transpose(-1, -2))
+    # AB_bot = expm(-F' dt) is never singular: the unchecked solve, which
+    # does not read its status back to the host
+    Q = torch.linalg.solve_ex(AB_bot.transpose(-1, -2), AB_top.transpose(-1, -2)).result
     Q = Q.transpose(-1, -2)
     return A, 0.5 * (Q + Q.transpose(-1, -2))
 
@@ -116,7 +188,7 @@ def lti_disc_stationary(F: torch.Tensor, Pinf: torch.Tensor, dt: float = 1.0):
     Exact for stationary processes (all kernels here); one matrix
     exponential.  Batched over any leading axes.
     """
-    A = torch.linalg.matrix_exp(F * dt)
+    A = expm(F * dt)
     Q = Pinf - A @ Pinf @ A.transpose(-1, -2)
     return A, 0.5 * (Q + Q.transpose(-1, -2))
 
@@ -171,12 +243,18 @@ def build_modulator_ssm(
     else:
         A, Q = lti_disc_matrix_fraction(F, LQcLT, dt)
 
+    leaves = (x.to(out_dtype) for x in (F, LQcLT, H, Pinf, A, Q))
+    return BlockSSM(*leaves, _pad_eye(D, N, 2 * tau1, tau3, bs, out_dtype, dev), D=D, N=N)
+
+
+@functools.lru_cache(maxsize=32)
+def _pad_eye(D: int, N: int, t_sub: int, t_mod: int, bs: int, dtype, device) -> torch.Tensor:
+    """``BlockSSM.pad_eye``: the identity on each channel's padded dims,
+    made once per shape, dtype and device and shared, so read-only."""
     pad = np.zeros((D + N, bs))
-    pad[:D, 2 * tau1:] = 1.0
-    pad[D:, tau3:] = 1.0
-    pad_eye = torch.diag_embed(torch.as_tensor(pad, dtype=dtype, device=dev))
-    leaves = (x.to(out_dtype) for x in (F, LQcLT, H, Pinf, A, Q, pad_eye))
-    return BlockSSM(*leaves, D=D, N=N)
+    pad[:D, t_sub:] = 1.0
+    pad[D:, t_mod:] = 1.0
+    return torch.diag_embed(torch.as_tensor(pad, dtype=dtype, device=device))
 
 
 def stack_ssms(ssms) -> BlockSSM:

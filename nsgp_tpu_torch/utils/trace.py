@@ -15,7 +15,10 @@ no device sync.  There is no setting; spans are on exactly while a profiler
 records.
 
 Span names are constant strings that start with ``nsgp.``; a span never reads
-a device value.
+a device value.  Counters are attributes of the function they count, reset by
+``fused_kalman.reset_launches``: ``<wrapper>.launches`` through ``launched``,
+and ``check_stationary.deferred``, the stationarity checks queued on the
+device inside ``fused_kalman.deferred_stationarity``, without a read.
 """
 
 from __future__ import annotations

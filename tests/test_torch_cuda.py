@@ -685,6 +685,55 @@ def test_fit_two_steps_card_matches_cpu(cuda):
                 [cpu.energies, *cpu.params.leaves()]) <= TRAIN_TOL
 
 
+def _speech_fit(dev, T_=16000):
+    """``fit_hyperparams`` as the training cell runs it: the trained speech
+    model (D=16, N=3, exp/matern52, 'sq', 77 sigma points) in float32, lik
+    1e-3, clipped into the ``SPECS`` boxes, on T_ samples of seeded noise."""
+    import os
+
+    from nsgp_tpu_torch.convert import load_trained
+    from nsgp_tpu_torch.experiments import with_lik
+    from nsgp_tpu_torch.experiments.train_hyperopt import SPECS, _clip_into
+    from nsgp_tpu_torch.inference.learn import fit_hyperparams
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model, params = load_trained(os.path.join(root, "results", "trained", "speech",
+                                              "trained_speech0_female_exp.npz"),
+                                 device=dev, dtype=torch.float32)
+    init = _clip_into(with_lik(params, 1e-3))
+    y = torch.randn(T_, generator=torch.Generator().manual_seed(7)).to(dev)
+    return lambda steps: fit_hyperparams(model, init, y, specs=SPECS, steps=steps,
+                                         learning_rate=1e-2, device=dev, ep_itts=1)
+
+
+@pytest.mark.cuda
+def test_fit_steps_never_sync(cuda):
+    """No host-device synchronisation in a fit step: at the training cell's
+    shapes, two steps of ``fit_hyperparams`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at the first
+    sync, inside an outer ``deferred_stationarity`` scope that reads their
+    two checks once the mode is back to default.  A one-step fit first makes
+    the constants a process caches (sigma points, ``expm``'s, ``pad_eye``).
+    Counted the same way (mode "warn", one warning a sync), a step
+    synchronised 31 times before ``ops.ssm.expm`` and the deferral (NVIDIA
+    H100): 16 subbands' [1, 0] rows and 6 of the modulators' L and H copied
+    from the host, 3 in ``torch.linalg.matrix_exp`` and 3 in its backward,
+    ``pad_eye`` from numpy, ``check_stationary``'s read, and ``ep_energy``'s
+    write of ``last_only[-1]``."""
+    fit = _speech_fit(cuda)
+    fit(1)
+    fk.reset_launches()
+    with fk.deferred_stationarity():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fit(2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fk.check_stationary.deferred == 2
+    assert fk.fused_adf.launches == 2 and fk.fused_adf_vjp.launches == 2
+    assert torch.isfinite(out.energies).all()
+
+
 @pytest.mark.cuda
 def test_giekf_energy_gradient_card_matches_cpu(cuda):
     from nsgp_tpu_torch.inference.giekf import GIEKFConfig, giekf_energy, giekf_infer
