@@ -55,6 +55,7 @@ from nsgp_tpu_torch.ops.pscan import associative_scan
 from nsgp_tpu_torch.ops.ssm import BlockSSM
 from nsgp_tpu_torch.utils.device import place_inputs
 from nsgp_tpu_torch.utils.precision import full_fp32
+from nsgp_tpu_torch.utils.trace import span, spanned
 
 
 class IHGPConfig(NamedTuple):
@@ -130,8 +131,19 @@ def build_tables(ssm: BlockSSM, cfg: IHGPConfig, smoother: bool = True) -> IHGPT
     tables (Ph, hPph), the smoother tables (Gn, hPSh) derived at the COARSE
     points and then interpolated.  ``smoother=False`` leaves Gn and hPSh
     None (the energy needs only the forward tables).
+
+    The bank runs on each channel's state balanced to unit prior variances
+    (x -> x / sqrt(diag Pinf)); the tables come back in the model's
+    coordinates.  A slow Matern channel's derivative states have prior
+    variances up to 1e9 times below its value's, and unbalanced the
+    smoother stage's solve lost that many digits (h'PS h 59% off in float32
+    on the piano model's slowest subband, 1.9e-4 in float64).
     """
-    A, Q, H, Pinf = ssm.A, ssm.Q, ssm.H, ssm.Pinf
+    d = torch.diagonal(ssm.Pinf, dim1=-2, dim2=-1)
+    s = torch.sqrt(torch.where(d > 0, d, torch.ones_like(d)))  # (C, bs); padded dims 1
+    ss = s[:, :, None] * s[:, None, :]
+    A, Q, Pinf = ssm.A * (s[:, None, :] / s[:, :, None]), ssm.Q / ss, ssm.Pinf / ss
+    H = ssm.H * s
     dt_, dev = A.dtype, A.device
 
     log_r_coarse = np.linspace(cfg.grid_lo, cfg.grid_hi, cfg.grid_coarse)
@@ -162,7 +174,7 @@ def build_tables(ssm: BlockSSM, cfg: IHGPConfig, smoother: bool = True) -> IHGPT
     hPinfh = torch.einsum("ci,cij,cj->c", H, Pinf, H)[:, None]
     floor = 1e-10  # the reference takes abs() of negative variances (:493-496)
     hPph = torch.clamp_min(torch.where(ok0, hPph, hPinfh), floor)
-    Ph = torch.where(any_good[..., 0], Ph, torch.zeros_like(Ph))
+    Ph = torch.where(any_good[..., 0], Ph, torch.zeros_like(Ph)) * s[:, None, :]
     log_r = torch.as_tensor(log_r_fine, dtype=dt_, device=dev)
     if not smoother:
         return IHGPTables(log_r=log_r, Ph=Ph, Gn=None, hPph=hPph, hPSh=None)
@@ -222,7 +234,8 @@ def build_tables(ssm: BlockSSM, cfg: IHGPConfig, smoother: bool = True) -> IHGPT
 
     # Fully failed channels: pure prediction at the prior (Gn = 0,
     # variances h' Pinf h).
-    Gn = torch.where(any_good, Gn, torch.zeros_like(Gn))
+    Gn = torch.where(any_good, Gn, torch.zeros_like(Gn)) * (s[:, None, :, None]
+                                                            / s[:, None, None, :])
     hPSh = torch.clamp_min(torch.where(ok0, hPSh, hPinfh), floor)
     return IHGPTables(log_r=log_r, Ph=Ph, Gn=Gn, hPph=hPph, hPSh=hPSh)
 
@@ -428,6 +441,7 @@ def _resite(mp, params: GTNMFParams, cfg: IHGPConfig, y, mask, mu, var, sites: S
     return Sites(ttau, tnu), lZ
 
 
+@spanned("nsgp.ihgp_infer")
 def ihgp_infer(
     model: GTNMFModel,
     params: GTNMFParams,
@@ -443,12 +457,14 @@ def ihgp_infer(
     ``device`` and the computation runs there in the parameters' dtype.
     """
     full_fp32()
-    dev, params, y, mask = place_inputs(params, y, mask, device)
-    T = y.shape[0]
-    ssm = model.build_ssm(params)
-    C, bs = ssm.H.shape
-    dt_ = ssm.A.dtype
-    tables = build_tables(ssm, config)
+    with span("nsgp.assemble"):
+        dev, params, y, mask = place_inputs(params, y, mask, device)
+        T = y.shape[0]
+        ssm = model.build_ssm(params)
+        C, bs = ssm.H.shape
+        dt_ = ssm.A.dtype
+        with span("nsgp.tables"):
+            tables = build_tables(ssm, config)
     if config.pf_correct:
         # stability floor of the corrected tables (see the JAX module)
         tables = tables._replace(hPSh=torch.clamp_min(tables.hPSh, params.lik.to(dt_)))
@@ -470,36 +486,40 @@ def ihgp_infer(
     mu = var = best = None
     for itt in range(config.ep_itts):
         damp = config.damp(itt)
-        if itt == 0:
-            ms, idx, lZ, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp, params.W,
-                                                    params.lik, damp, all_steps)
-            nlZ[0] = -torch.sum(lZ)
-            lZ_final = lZ
-            lZ_last = lZ[-1]
-        elif config.parallel:
-            if config.chunk:
-                ms, idx = _steady_filter_blocked(ssm, tables, mask, sites, config.chunk)
+        with span("nsgp.sweep1" if itt == 0 else "nsgp.pass"):
+            if itt == 0:
+                ms, idx, lZ, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp,
+                                                        params.W, params.lik, damp, all_steps)
+                nlZ[0] = -torch.sum(lZ)
+                lZ_final = lZ
+                lZ_last = lZ[-1]
+            elif config.parallel:
+                if config.chunk:
+                    ms, idx = _steady_filter_blocked(ssm, tables, mask, sites, config.chunk)
+                else:
+                    ms, idx = _steady_filter_parallel(ssm, tables, mask, sites)
             else:
-                ms, idx = _steady_filter_parallel(ssm, tables, mask, sites)
-        else:
-            # later forward passes still re-match the last site (ref :251)
-            ms, idx, lZ_fwd, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp,
-                                                        params.W, params.lik, damp, last_only)
-            lZ_last = lZ_fwd[-1]
-        if config.parallel and config.chunk:
-            sm = _steady_smoother_blocked(ssm, tables, ms, idx, config.chunk)
-        else:
-            sm = _steady_smoother(ssm, tables, ms, idx, parallel=config.parallel)
+                # later forward passes still re-match the last site (ref :251)
+                ms, idx, lZ_fwd, sites = _steady_filter_seq(ssm, tables, y, mask, sites, mp,
+                                                            params.W, params.lik, damp,
+                                                            last_only)
+                lZ_last = lZ_fwd[-1]
+            if config.parallel and config.chunk:
+                sm = _steady_smoother_blocked(ssm, tables, ms, idx, config.chunk)
+            else:
+                sm = _steady_smoother(ssm, tables, ms, idx, parallel=config.parallel)
 
-        mu_new = sm @ Hm
-        var_new = tables.hPSh[car, idx]  # (T, C) steady smoothed variances
-        if itt > 0:
-            maxdiff[itt] = torch.maximum((mu_new - mu).abs().max(), (var_new - var).abs().max())
-        mu, var = mu_new, var_new
+            mu_new = sm @ Hm
+            var_new = tables.hPSh[car, idx]  # (T, C) steady smoothed variances
+            if itt > 0:
+                maxdiff[itt] = torch.maximum((mu_new - mu).abs().max(),
+                                             (var_new - var).abs().max())
+            mu, var = mu_new, var_new
 
         if itt < config.ep_itts - 1:
-            sites, lZ = _resite(mp, params, config, y, mask, mu, var, sites,
-                                config.damp(itt + 1), exclude_last=seq)
+            with span("nsgp.resite"):
+                sites, lZ = _resite(mp, params, config, y, mask, mu, var, sites,
+                                    config.damp(itt + 1), exclude_last=seq)
             if seq:
                 lZ = torch.cat([lZ[:-1], lZ_last[None]])
             nlZ[itt + 1] = -torch.sum(lZ)
@@ -507,8 +527,9 @@ def ihgp_infer(
             score = nlZ[itt + 1]
         elif config.keep_best:
             # score the final sweep's posterior the same way (sites discarded)
-            _, lZ_eval = _resite(mp, params, config, y, mask, mu, var, sites, 0.0,
-                                 exclude_last=seq)
+            with span("nsgp.resite"):
+                _, lZ_eval = _resite(mp, params, config, y, mask, mu, var, sites, 0.0,
+                                     exclude_last=seq)
             score = -torch.sum(lZ_eval)
         if config.keep_best:
             if itt == 0:
@@ -525,6 +546,7 @@ def ihgp_infer(
     return IHGPResult(Eft=mu, Varft=var, lZ=lZ_final, sites=sites, nlZ=nlZ, maxdiff=maxdiff)
 
 
+@spanned("nsgp.ihgp_energy")
 def ihgp_energy(
     model: GTNMFModel,
     params: GTNMFParams,
@@ -540,13 +562,17 @@ def ihgp_energy(
     ``FusedIHGPADF``: on the card one launch of K5 forward and one of its
     adjoint K8 backward, whatever T."""
     full_fp32()
-    dev, params, y, mask = place_inputs(params, y, mask, device)
-    T = y.shape[0]
-    ssm = model.build_ssm(params)
-    tables = build_tables(ssm, config, smoother=False)
+    with span("nsgp.assemble"):
+        dev, params, y, mask = place_inputs(params, y, mask, device)
+        T = y.shape[0]
+        ssm = model.build_ssm(params)
+        with span("nsgp.tables"):
+            tables = build_tables(ssm, config, smoother=False)
     zeros = torch.zeros((T, ssm.num_channels), dtype=ssm.A.dtype, device=dev)
-    _, _, lZ, _ = _steady_filter_seq(ssm, tables, y, mask, Sites(zeros, zeros),
-                                     model.moment_params(), params.W, params.lik, config.damp(0),
-                                     torch.ones((T,), dtype=torch.bool, device=dev),
-                                     sweep=fih.fused_ihgp_adf_autograd)
-    return -torch.sum(lZ)
+    with span("nsgp.sweep1"):
+        _, _, lZ, _ = _steady_filter_seq(ssm, tables, y, mask, Sites(zeros, zeros),
+                                         model.moment_params(), params.W, params.lik,
+                                         config.damp(0),
+                                         torch.ones((T,), dtype=torch.bool, device=dev),
+                                         sweep=fih.fused_ihgp_adf_autograd)
+        return -torch.sum(lZ)

@@ -1,10 +1,12 @@
 """The port's spans and kernel-launch counts, as ``torch.profiler`` sees them.
 
 A span names an entry point (``nsgp.ep_infer``, ``nsgp.ep_energy``,
-``nsgp.fit_hyperparams``, ...), a phase of one (``nsgp.assemble``,
-``nsgp.sweep1``, ``nsgp.resite``, ``nsgp.pass``, ``nsgp.readout``; in
-training each optimiser step, ``nsgp.step``, and its ``loss.backward()``,
-``nsgp.backward``) or one hand-written kernel's launch (``nsgp.K1`` ..
+``nsgp.ihgp_infer``, ``nsgp.ihgp_energy``, ``nsgp.fit_hyperparams``, ...),
+a phase of one (``nsgp.assemble``, ``nsgp.sweep1``, ``nsgp.resite``,
+``nsgp.pass``, ``nsgp.readout``; in training each optimiser step,
+``nsgp.step``, and its ``loss.backward()``, ``nsgp.backward``), a part of a
+phase (``nsgp.tables``: IHGP's DARE bank and its steady-state tables, inside
+``nsgp.assemble``) or one hand-written kernel's launch (``nsgp.K1`` ..
 ``nsgp.K9``).  A backward kernel's span (``nsgp.K7``) opens on the autograd
 engine's own thread, inside ``nsgp.backward`` in time.  While a profiler
 session records, a span is ``torch.profiler.record_function``: it lands in

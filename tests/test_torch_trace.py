@@ -4,10 +4,12 @@ On the CPU, at tiny sizes: with no profiler recording a span never reaches
 ``record_function``; under ``torch.profiler`` each benchmarked entry point
 gives its entry span with its phases nested in call order, siblings never
 overlapping; outputs are bit-identical with and without a profiler;
-``launched`` counts as the wrappers' own counters did.  The card test
-(marker ``cuda``) traces a fused ``ep_infer`` on the card and holds every
-kernel to a launch event and a phase, and the ``nsgp.K<n>`` spans to the
-wrappers' counters (K9's inside ``nsgp.resite``).  This file imports no JAX; on the card:
+``launched`` counts as the wrappers' own counters did; ``ihgp_infer`` and
+``ihgp_energy`` nest the DARE bank's ``nsgp.tables`` in their assembly.  The
+card tests (marker ``cuda``) trace a fused ``ep_infer`` on the card and hold
+every kernel to a launch event and a phase, and the ``nsgp.K<n>`` spans to
+the wrappers' counters (K9's inside ``nsgp.resite``); ``ihgp_infer``'s K5
+and K6 to its sweeps, and its bank to ``nsgp.tables``.  This file imports no JAX; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
 """
@@ -26,6 +28,7 @@ from nsgp_tpu_torch.apps.missing_data import fill_gaps_batch
 from nsgp_tpu_torch.apps.source_sep import separate
 from nsgp_tpu_torch.inference.batched import ep_infer_batch
 from nsgp_tpu_torch.inference.ep import EPConfig, ep_energy, ep_infer
+from nsgp_tpu_torch.inference.ihgp import IHGPConfig, ihgp_energy, ihgp_infer
 from nsgp_tpu_torch.inference.learn import fit_hyperparams
 from nsgp_tpu_torch.models.gtnmf import GTNMFModel, GTNMFParams, sample_prior, stack_params
 from nsgp_tpu_torch.ops import fused_ihgp, fused_kalman
@@ -197,6 +200,52 @@ def test_fit_hyperparams_steps_nest(tmp_path):
         assert [s[0] for s in _children(spans, kids[0])] == ["nsgp.assemble", "nsgp.sweep1"]
 
 
+IHGP_CFG = IHGPConfig(ep_itts=3, ep_fraction=0.75, damping=(0.1, 0.025), grid_lo=-7.0)
+
+
+def _ihgp_calls():
+    """The infinite-horizon entry points on a tiny signal with a gap: (call,
+    entry span, the spans directly under it)."""
+    p = _params(2, 1, 0)
+    y = _signal(MODEL, p, T, 3)
+    y[10:14] = float("nan")
+    return {
+        "ihgp_infer": (lambda: ihgp_infer(MODEL, p, y, None, IHGP_CFG, device="cpu"),
+                       "nsgp.ihgp_infer", ["nsgp.assemble", "nsgp.sweep1", "nsgp.resite",
+                                           "nsgp.pass", "nsgp.resite", "nsgp.pass"]),
+        "ihgp_energy": (lambda: ihgp_energy(MODEL, p, y, None, IHGP_CFG, device="cpu"),
+                        "nsgp.ihgp_energy", ["nsgp.assemble", "nsgp.sweep1"]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["ihgp_infer", "ihgp_energy"])
+def test_ihgp_spans_nest_in_call_order(entry, monkeypatch, tmp_path):
+    """No profiler: no ``record_function`` is reached.  Under the profiler:
+    the entry span holds the assembly, which holds the DARE bank's
+    ``nsgp.tables``, then the sweeps and re-sites in call order, no sibling
+    overlapping another; the outputs are the same bits either way."""
+    call, top, expected = _ihgp_calls()[entry]
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function reached with no profiler recording")
+
+    with monkeypatch.context() as m:
+        m.setattr(autograd_profiler, "record_function", refuse)
+        m.setattr(torch.profiler, "record_function", refuse)
+        plain = call()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = call()
+    for a, b in zip(_flat(plain), _flat(traced), strict=True):
+        assert torch.equal(a, b)
+    spans = _spans(_events(prof, tmp_path / "trace.json"))
+    (entry_span,) = [s for s in spans if s[0] == top]
+    kids = _children(spans, entry_span)
+    assert [s[0] for s in kids] == expected
+    for a, b in zip(kids, kids[1:]):
+        assert a[2] <= b[1], (a, b)
+    assert [s[0] for s in _children(spans, kids[0])] == ["nsgp.tables"]
+
+
 class _Wrapper:
     launches = 0
 
@@ -301,6 +350,61 @@ def test_traced_ep_infer_on_the_card(cuda, tmp_path):
     resites = [s for s in spans if s[0] == "nsgp.resite"]
     for k9 in (s for s in spans if s[0] == "nsgp.K9"):
         assert any(r[1] <= k9[1] and k9[2] <= r[2] for r in resites), k9
+
+
+@pytest.mark.cuda
+def test_traced_ihgp_infer_on_the_card(cuda, tmp_path):
+    """``ihgp_infer`` at the benchmark cell's model and settings (the piano
+    model of ``ihgp_music_m32``, sequential form, 3 sweeps) at T = 4096
+    under the profiler: K5 and K6 launch once a sweep, each kernel's launch
+    inside its ``nsgp.K5`` / ``nsgp.K6`` span, each of those inside
+    ``nsgp.sweep1`` or ``nsgp.pass``, and the spans number the wrappers'
+    counts; the DARE bank's kernels launch inside ``nsgp.tables``."""
+    from benchmark import inputs, job
+    from benchmark.manifest import Manifest
+
+    man = Manifest()
+    cfg = man.config("ihgp_music_m32")
+    m, g = cfg["model"], cfg["ihgp"]
+    w = job.as_float32(cfg["weights"]["piano"])
+    model = job.program_model(m, m["D"], m["N"])
+    params = job.program_params(w, cuda, torch.float32)
+    y = inputs.prior_signal(inputs.stream(5, 0), m, w, 4096)
+    y[1000:1320] = np.nan
+    y = torch.as_tensor(y, dtype=torch.float32, device=cuda)
+    config = IHGPConfig(ep_itts=3, ep_fraction=0.75, damping=(0.1, 0.025),
+                        grid_lo=g["grid_lo"], grid_hi=g["grid_hi"],
+                        grid_coarse=g["grid_coarse"], grid_fine=g["grid_fine"])
+    ihgp_infer(model, params, y, None, config, device=cuda)  # warm-up
+    torch.cuda.synchronize()
+    fused_ihgp.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ihgp_infer(model, params, y, None, config, device=cuda)
+        torch.cuda.synchronize()
+    assert (fused_ihgp.fused_ihgp_adf.launches, fused_ihgp.fused_ihgp_smooth.launches) == (3, 3)
+    xs = _events(prof, tmp_path / "trace.json")
+    spans = _spans(xs)
+    within = lambda inner, outer: outer[1] <= inner[1] and inner[2] <= outer[2]
+    named = lambda n: [s for s in spans if s[0] == n]
+    sweeps = named("nsgp.sweep1") + named("nsgp.pass")
+    assert (len(named("nsgp.sweep1")), len(named("nsgp.pass"))) == (1, 2)
+    launches = {e["args"]["correlation"]: e["ts"] for e in xs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    for name, fn, stem in (("nsgp.K5", fused_ihgp.fused_ihgp_adf, "fused_ihgp_adf_kernel"),
+                           ("nsgp.K6", fused_ihgp.fused_ihgp_smooth, "fused_ihgp_smooth_kernel")):
+        ks = named(name)
+        assert len(ks) == fn.launches, name
+        assert all(sum(within(k, s) for s in sweeps) == 1 for k in ks), name
+        own = [e for e in xs if e.get("cat") == "kernel" and stem in e["name"]]
+        assert len(own) == fn.launches, stem
+        for k in own:
+            t = launches[k["args"]["correlation"]]
+            assert any(s[1] <= t <= s[2] for s in ks), stem
+    (tables,) = named("nsgp.tables")
+    in_tables = [e for e in xs if e.get("cat") == "kernel"
+                 and tables[1] <= launches.get(e["args"]["correlation"], -1) <= tables[2]]
+    assert in_tables
 
 
 @pytest.mark.cuda
